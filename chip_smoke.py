@@ -9,9 +9,14 @@ Phases, each timed and printed on its own line:
    without CUDA.
 2. build: compiles the CUDA kernels (one nvcc call) and loads them.
 3. kernels: holds each kernel against its plain PyTorch version at the GAIL
-   CartPole shapes and at edge shapes (B1 GAE within 1e-5, B2 disc-batch
-   assembly exactly), and times kernel, plain version and, for B2, the
-   ``index_select`` + ``cat`` yardstick with CUDA events (median of repeats).
+   CartPole shapes and at edge shapes: B1 GAE allclose at rtol = atol = 1e-5
+   (it composes segments of the scan, so it sums in another order), printing
+   its grid at each shape; B2 disc-batch assembly exactly, the four fields of
+   a disc step in one launch, plus a field of F = 3 and fields whose base is
+   offset by one element (the word path and the misaligned path). Times the
+   kernel and its plain version and, for B2, the yardstick of four x
+   (``index_select`` x 2 + ``cat``), with CUDA events (median of repeats);
+   B1 at [128, 1024], [64, 64] and [2048, 4096], B2 per disc step.
    ``device_ms`` is the kernel's own device time from a torch.profiler trace
    (``ms`` is the time per call, wrapper and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -21,7 +26,8 @@ Phases, each timed and printed on its own line:
    x 128 steps, PPO 32 minibatches x 5 epochs, demo batch 2048, 2 disc
    updates per round) with demos made on the card by the scripted expert:
    one warm-up round, then two rounds of ``train`` with the kernels' launch
-   counts set to 0 just before and read just after; then one more round
+   counts set to 0 just before and read just after (B1 once per round, B2
+   once per disc step); then one more round
    under torch.profiler, split by the port's ``record_function`` phases
    (host and kernel time of each, busy share, top kernels).
 
@@ -122,8 +128,9 @@ def check_kernels(torch, dev):
         return r, v, nv, term, torch.maximum(term, trunc)
 
     gamma, lam = 0.99, 0.95
-    err_path = None
-    for T, B in ((128, 1024), (1, 5), (17, 37), (32, 8), (2048, 4096)):
+    timed = ((128, 1024), (64, 64), (2048, 4096))  # main path, HalfCheetah path, large
+    kept, err_path = {}, None
+    for T, B in ((128, 1024), (64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
         adv, ret = gae.gae(*p, gamma, lam)
         adv_p, ret_p = gae.gae_plain(*p, gamma, lam)
@@ -131,77 +138,116 @@ def check_kernels(torch, dev):
         if not (torch.allclose(adv, adv_p, rtol=1e-5, atol=1e-5)
                 and torch.allclose(ret, ret_p, rtol=1e-5, atol=1e-5)):
             raise AssertionError(f"GAE kernel disagrees with plain at T={T} B={B}: {err}")
-        log("kernels", f"gae T={T} B={B}: max_abs_err {err:.3g} (tol 1e-5)")
+        log("kernels", f"gae T={T} B={B}: max_abs_err {err:.3g} (allclose rtol=atol=1e-5); "
+                       f"grid {gae.launch_shape(T, B)}")
+        if (T, B) in timed:
+            kept[(T, B)] = p
         if (T, B) == (128, 1024):
-            err_path, p_path = err, p
+            err_path = err
+    gae_rows = {}
+    for T, B in timed:
+        p = kept[(T, B)]
+        big = T * B > 10**6
+        ms = cuda_ms(lambda: gae.gae(*p, gamma, lam), reps=20 if big else 200)
+        dev_ms = device_ms(lambda: gae.gae(*p, gamma, lam), 10 if big else 50, "gae_kernel")
+        gae_bytes, gae_ops = 7 * T * B * 4, 10 * T * B
+        bound = max(gae_bytes / HBM_BYTES_PER_S, gae_ops / F32_FLOP_PER_S) * 1e3
+        share = f"{100 * bound / dev_ms:.1f}%" if dev_ms else "not measured"
+        gae_rows[(T, B)] = (ms, dev_ms, bound, gae_bytes, gae_ops)
+        log("kernels", f"gae [{T},{B}]: call {ms:.4f} ms, device {dev_ms} ms, bound {bound:.5f} ms "
+                       f"(bytes {gae_bytes}), device time at {share} of the bound; "
+                       f"grid {gae.launch_shape(T, B)}")
     T, B = 128, 1024
-    ms = cuda_ms(lambda: gae.gae(*p_path, gamma, lam), reps=200)
-    plain_ms = cuda_ms(lambda: gae.gae_plain(*p_path, gamma, lam), reps=5)
-    dev_ms = device_ms(lambda: gae.gae(*p_path, gamma, lam), 50, "gae_kernel")
-    gae_bytes = 7 * T * B * 4
-    gae_ops = 10 * T * B
-    bound = max(gae_bytes / HBM_BYTES_PER_S, gae_ops / F32_FLOP_PER_S) * 1e3
+    ms, dev_ms, bound, gae_bytes, gae_ops = gae_rows[(T, B)]
+    plain_ms = cuda_ms(lambda: gae.gae_plain(*kept[(T, B)], gamma, lam), reps=5)
+    log("kernels", f"gae [{T},{B}]: plain {plain_ms:.4f} ms")
     entries.append(dict(
         name="gae", route="cuda", source="imitation_tpu_torch/csrc/gae.cu",
         replaces="imitation_tpu/ops/gae_pallas.py:30",
         max_abs_err=err_path, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if gae_bytes / HBM_BYTES_PER_S >= gae_ops / F32_FLOP_PER_S else "operations",
         library_ms=None, device_ms=dev_ms, shape=f"[{T}, {B}] f32 x5 -> x2",
+        grid=gae.launch_shape(T, B),
     ))
-    log("kernels", f"gae [{T},{B}]: call {ms:.4f} ms (device {dev_ms} ms), plain {plain_ms:.4f} ms, "
-                   f"bound {bound:.5f} ms")
 
-    # -- B2 disc-batch assembly ---------------------------------------------------
-    def field(rows, F, dtype):
-        shape = (rows,) if F is None else (rows, F)
+    # -- B2 disc-batch assembly: one launch for a disc step's four fields -----------
+    def field(rows, F, dtype, offset=0):
+        """[rows] or [rows, F]; ``offset`` words into a larger buffer, so the
+        base is only 4-byte aligned when offset is odd."""
+        n = rows * (F or 1) + offset
         if dtype == torch.int32:
-            return torch.randint(0, 2, shape, generator=g, device=dev, dtype=torch.int32)
-        return torch.randn(shape, generator=g, device=dev)
+            flat = torch.randint(-1000, 1000, (n,), generator=g, device=dev, dtype=torch.int32)
+        else:
+            flat = torch.randn((n,), generator=g, device=dev)
+        flat = flat[offset:]
+        return flat if F is None else flat.view(rows, F)
 
     def idx(n, lo, hi):
         return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
 
-    N, C, Bd = 12800, 131072, 2048  # demo rows, replay rows, demo_batch_size
-    err_b2 = 0.0
-    cases = [
-        ("obs", N, C, Bd, 4, torch.float32, 0),
-        ("acts", N, C, Bd, None, torch.int32, 0),
-        ("dones", N, C, Bd, None, torch.float32, 0),
-        ("edge-1row", 5, 5, 1, 1, torch.float32, 0),
-        ("edge-out-of-range", 12, 9, 40, 3, torch.float32, 30),
-        ("edge-1d-out-of-range", 12, 9, 40, None, torch.int32, 30),
-    ]
-    for name, n, c, b, F, dtype, spread in cases:
-        demo, gen_rows = field(n, F, dtype), field(c, F, dtype)
+    def check_fused(name, n, c, b, kinds, spread=0):
+        pairs = [(field(n, F, dt, off), field(c, F, dt, off)) for F, dt, off in kinds]
         e = idx(b, -spread, n + spread) if spread else idx(b, 0, n)
         gi = idx(b, -spread, c + spread) if spread else idx(b, 0, c)
-        out = disc_assembly.assemble_rows(demo, gen_rows, e, gi)
-        want = disc_assembly.assemble_rows_plain(demo, gen_rows, e, gi)
-        if not torch.equal(out, want):
-            raise AssertionError(f"assembly kernel disagrees with plain on {name}")
-        err_b2 = max(err_b2, (out.double() - want.double()).abs().max().item())
-        log("kernels", f"assemble_rows {name} [{n}|{c}]->[{2 * b}{'' if F is None else f', {F}'}] {dtype}: exact")
-        if name == "obs":
-            demo_o, gen_o, e_o, g_o = demo, gen_rows, e, gi
-    ms_b2 = cuda_ms(lambda: disc_assembly.assemble_rows(demo_o, gen_o, e_o, g_o), reps=200)
-    plain_b2 = cuda_ms(lambda: disc_assembly.assemble_rows_plain(demo_o, gen_o, e_o, g_o), reps=200)
-    lib_b2 = cuda_ms(
-        lambda: torch.cat([torch.index_select(demo_o, 0, e_o), torch.index_select(gen_o, 0, g_o)]),
-        reps=200,
-    )
-    dev_b2 = device_ms(lambda: disc_assembly.assemble_rows(demo_o, gen_o, e_o, g_o), 50,
-                       "assemble_rows_kernel")
-    b2_bytes = 2 * Bd * 4 + 2 * (2 * Bd * 4 * 4)
+        outs = disc_assembly.assemble_fields(pairs, e, gi)
+        err = 0.0
+        for out, (d, gr) in zip(outs, pairs):
+            want = disc_assembly.assemble_rows_plain(d, gr, e, gi)
+            if not torch.equal(out, want):
+                raise AssertionError(f"fused assembly disagrees with plain on {name}")
+            err = max(err, (out.double() - want.double()).abs().max().item())
+        log("kernels", f"assemble_fields {name} [{n}|{c}] B={b}, fields (F, dtype, offset) "
+                       f"{[(F, str(dt).split('.')[-1], off) for F, dt, off in kinds]}: exact, one launch")
+        return pairs, e, gi, err
+
+    f32, i32 = torch.float32, torch.int32
+    N, C, Bd = 12800, 131072, 2048  # demo rows, replay rows, demo_batch_size
+    disc_kinds = ((4, f32, 0), (None, i32, 0), (4, f32, 0), (None, f32, 0))  # obs acts next_obs dones
+    pairs, e_o, g_o, err_b2 = check_fused("disc step", N, C, Bd, disc_kinds)
+    for name, kinds, n, c, b, spread in (
+        ("edge-1row", ((1, f32, 0),), 5, 5, 1, 0),
+        ("edge-out-of-range", ((3, f32, 0),), 12, 9, 40, 30),
+        ("edge-1d-out-of-range", ((None, i32, 0),), 12, 9, 40, 30),
+        ("F=3 word path", ((3, f32, 0),), N, C, Bd, 0),
+        ("1-D base offset by one element", ((None, f32, 1),), N, C, Bd, 0),
+        ("mixed: aligned F=4, F=3, offset 1-D, offset F=4",
+         ((4, f32, 0), (3, i32, 0), (None, f32, 1), (4, f32, 1)), 300, 700, 257, 40),
+    ):
+        err_b2 = max(err_b2, check_fused(name, n, c, b, kinds, spread)[3])
+
+    def fused():
+        return disc_assembly.assemble_fields(pairs, e_o, g_o)
+
+    def plain_step():
+        return [disc_assembly.assemble_rows_plain(d, gr, e_o, g_o) for d, gr in pairs]
+
+    def yardstick():  # four x (two index_select + cat): one PyTorch call chain per field
+        return [torch.cat([torch.index_select(d, 0, e_o), torch.index_select(gr, 0, g_o)])
+                for d, gr in pairs]
+
+    ms_b2 = cuda_ms(fused, reps=200)
+    plain_b2 = cuda_ms(plain_step, reps=100)
+    lib_b2 = cuda_ms(yardstick, reps=200)
+    dev_b2 = device_ms(fused, 50, "assemble_fields_kernel")
+    lib_dev_b2 = device_ms(yardstick, 50, "")
+    obs_only = lambda: disc_assembly.assemble_rows(pairs[0][0], pairs[0][1], e_o, g_o)
+    dev_obs = device_ms(obs_only, 50, "assemble_fields_kernel")
+    b2_bytes = 2 * Bd * 4 + sum(2 * 2 * Bd * 4 * (d.shape[1] if d.dim() == 2 else 1) for d, _ in pairs)
     bound_b2 = b2_bytes / HBM_BYTES_PER_S * 1e3
+    ctas_b2 = -(-2 * Bd // 128)
     entries.append(dict(
         name="assemble_rows", route="cuda", source="imitation_tpu_torch/csrc/disc_assembly.cu",
         replaces="imitation_tpu/ops/disc_assembly.py:36",
         max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2, bound_ms=bound_b2, bound_by="bytes",
-        library_ms=lib_b2, device_ms=dev_b2,
-        shape=f"obs field: demo [{N}, 4], gen [{C}, 4], B={Bd} f32",
+        library_ms=lib_b2, device_ms=dev_b2, library_device_ms=lib_dev_b2,
+        shape=f"one disc step, 4 fields in one launch: demo [{N}], replay [{C}], B={Bd}; "
+              f"obs/next_obs [., 4] f32, acts [.] int32, dones [.] f32",
+        grid={"ctas": ctas_b2, "threads": 128},
     ))
-    log("kernels", f"assemble_rows obs: call {ms_b2:.4f} ms (device {dev_b2} ms), plain {plain_b2:.4f} ms, "
-                   f"index_select+cat {lib_b2:.4f} ms, bound {bound_b2:.6f} ms")
+    log("kernels", f"assemble_fields disc step (4 fields, {b2_bytes} bytes, grid {ctas_b2} x 128): "
+                   f"call {ms_b2:.4f} ms, device {dev_b2} ms (obs field alone {dev_obs} ms), "
+                   f"plain {plain_b2:.4f} ms, 4 x (index_select+index_select+cat) call {lib_b2:.4f} ms "
+                   f"device {lib_dev_b2} ms, bound {bound_b2:.6f} ms")
     return entries
 
 
@@ -295,14 +341,14 @@ def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
     rounds = 2
     round_ends = []
     gae.gae.launches = 0
-    disc_assembly.assemble_rows.launches = 0
+    disc_assembly.assemble_fields.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train(rounds * trainer.gen_train_timesteps,
                   callback=lambda r: round_ends.append(time.perf_counter()))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"gae": gae.gae.launches, "assemble_rows": disc_assembly.assemble_rows.launches}
+    launches = {"gae": gae.gae.launches, "assemble_rows": disc_assembly.assemble_fields.launches}
     per_round = [round_ends[0] - t0] + [b - a for a, b in zip(round_ends, round_ends[1:])]
     log("gail", f"{rounds} rounds in {elapsed:.3f} s ({', '.join(f'{s:.3f}' for s in per_round)} s "
                 f"per round; {trainer.gen_train_timesteps} env steps each); launches {launches}")
@@ -320,6 +366,9 @@ def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
         raise AssertionError("non-finite parameters after training")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    want = {"gae": rounds, "assemble_rows": rounds * trainer.n_disc_updates_per_round}
+    if launches != want:  # GAE once per round, B2 once per disc step
+        raise AssertionError(f"launches {launches}, expected {want}")
 
     # The reward net's GPU forward against its CPU forward on the replay rows.
     data = trainer._gen_buffer_state.data
@@ -417,9 +466,7 @@ def main() -> int:
 
     for e in entries:
         e["launches"] = launches[e["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "shape")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     log("total", f"{time.perf_counter() - t_all:.2f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

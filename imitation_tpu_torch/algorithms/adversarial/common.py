@@ -12,9 +12,9 @@ generator on device envs. The training loop alternates:
                     mix of expert and generator rows
 
 Each discriminator step builds its ``[expert; gen]`` batch with the
-hand-written CUDA kernel B2 (``ops.disc_assembly.assemble_rows``), one
-launch per field, gathering straight from the demo store and the replay
-ring. Parameters are updated in place; metrics stay on the device until
+hand-written CUDA kernel B2 (``ops.disc_assembly.assemble_fields``), one
+launch for all four fields, gathering straight from the demo store and the
+replay ring. Parameters are updated in place; metrics stay on the device until
 ``train`` reads them once per round.
 
 Subclass contract (GAIL): ``logits_expert_is_high`` maps reward-net outputs
@@ -41,7 +41,7 @@ from imitation_tpu_torch.data.rollout import chunk_to_transitions
 from imitation_tpu_torch.envs.vector import VectorEnv
 from imitation_tpu_torch.models.networks import RunningNorm
 from imitation_tpu_torch.models.policies import ActorCriticPolicy
-from imitation_tpu_torch.ops.disc_assembly import assemble_rows
+from imitation_tpu_torch.ops.disc_assembly import assemble_fields
 from imitation_tpu_torch.rewards.reward_nets import RewardNet
 from imitation_tpu_torch.rl import common as rl_common
 from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
@@ -257,9 +257,9 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             disc_state.generator,
         )
         gen = gen_buffer_state.data
-        obs, acts, next_obs, dones = (
-            assemble_rows(getattr(demo_batch, f), getattr(gen, f), e_idx, g_idx)
-            for f in ("obs", "acts", "next_obs", "dones")
+        obs, acts, next_obs, dones = assemble_fields(
+            [(getattr(demo_batch, f), getattr(gen, f)) for f in ("obs", "acts", "next_obs", "dones")],
+            e_idx, g_idx,
         )
 
         def to_mb(x):

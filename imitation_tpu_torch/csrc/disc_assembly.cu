@@ -1,67 +1,139 @@
-// Kernel B2: discriminator-batch assembly, out = concat([demo[e_idx], gen[g_idx]]).
+// Kernel B2: discriminator-batch assembly, out = concat([demo[e_idx], gen[g_idx]]),
+// for several fields in one launch.
 //
 // Replaces the TPU kernel `_kernel` / `assemble_rows_pallas` in
 // imitation_tpu/ops/disc_assembly.py, which prefetched the row indices into
 // SMEM and issued one row DMA per output row from a semaphore ring.
 //
-// Here one kernel works on 4-byte words, so float32 and int32 fields share
-// it: demo is [N, F] words, gen is [C, F] words, e_idx and g_idx are [B]
-// int32, out is [2B, F] words (a [N] field is F = 1). Each thread copies one
-// output word: it loads its row's index itself (there is no scalar
-// prefetch), takes demo for rows below B and gen otherwise, and reads the
-// word. Neighbouring threads write neighbouring words, so stores coalesce.
-// An index is handled as JAX's x[idx] does: a negative one counts from the
-// end, then it is clamped to [0, rows - 1].
+// A discriminator step gathers four fields (obs, acts, next_obs, dones) with
+// the same two index arrays, so one launch assembles up to kMaxFields fields.
+// Each field is words of 4 bytes, so float32 and int32 fields share it:
+// demo is [N, W] words, gen is [C, W] words, out is [2B, W] words (a [N]
+// field is W = 1); e_idx and g_idx are [B] int32 and N, C are the same for
+// every field.
 //
-// Bound: it moves 2B*4 index bytes plus 2 * 2B*F*4 row bytes, 0.15 MB for
-// the obs field of the GAIL CartPole disc step (B=2048, F=4), far below a
-// microsecond at 3.35 TB/s, so at these sizes it is bound by launch latency.
-// That is why a simple design is enough: one launch per field, four per
-// disc step. Fusing the fields into one launch is the next step if it shows.
+// A warp owns a run of 32 output rows. Each lane loads its row's index once
+// and reads it as JAX's x[idx] does (a negative index counts from the end,
+// then it is clamped to [0, rows - 1]); the warp then moves the 32 rows of
+// every field together, each lane getting a row's source index from its
+// owner by __shfl_sync, so the index is loaded and clamped once for all
+// fields and the stores of a run are contiguous. A field whose rows are a
+// multiple of 16 bytes, with all three bases 16-byte aligned, moves in
+// 16-byte units (obs and next_obs at W = 4: one uint4 per row); any other
+// field moves word by word. Every field's loads of a round are started before
+// its stores, so up to kMaxFields gathers are in flight at once.
+//
+// Bound: the four fields of a GAIL CartPole disc step (B = 2048) move about
+// 344 KB (indices 2 * B * 4 bytes; obs and next_obs 2 * 2B * 16 each; acts
+// and dones 2 * 2B * 4 each), about 0.1 us at 3.35 TB/s. At that size a
+// launch takes longer than its bytes, so the design's gain is one launch per
+// disc step in place of four.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void assemble_rows_kernel(const uint32_t* __restrict__ demo,
-                                     const uint32_t* __restrict__ gen,
-                                     const int32_t* __restrict__ e_idx,
-                                     const int32_t* __restrict__ g_idx,
-                                     uint32_t* __restrict__ out,
-                                     long long n_demo, long long n_gen, int B,
-                                     int F) {
-  const long long total = 2LL * B * F;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / F;
-    const int col = static_cast<int>(i - row * F);
+constexpr int kMaxFields = 8;
+constexpr int kThreads = 128;
+
+struct Fields {
+  const void* demo[kMaxFields];
+  const void* gen[kMaxFields];
+  void* out[kMaxFields];
+  int units[kMaxFields];  // per row: 16-byte units where vec, else 4-byte words
+  int vec[kMaxFields];
+  int n;
+  int max_units;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    assemble_fields_kernel(const Fields f, const int32_t* __restrict__ e_idx,
+                           const int32_t* __restrict__ g_idx, long long n_demo,
+                           long long n_gen, int B) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long run = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32 * 32;
+  const long long n_out = 2LL * B;
+
+  long long src = 0;  // this lane's row of demo or gen
+  if (run + lane < n_out) {
+    const long long row = run + lane;
     const bool from_demo = row < B;
-    const uint32_t* src = from_demo ? demo : gen;
     const long long rows = from_demo ? n_demo : n_gen;
-    long long idx = from_demo ? e_idx[row] : g_idx[row - B];
-    if (idx < 0) idx += rows;
-    idx = idx < 0 ? 0 : (idx >= rows ? rows - 1 : idx);
-    out[i] = src[idx * F + col];
+    long long i = from_demo ? e_idx[row] : g_idx[row - B];
+    if (i < 0) i += rows;
+    src = i < 0 ? 0 : (i >= rows ? rows - 1 : i);
+  }
+
+  // Round r moves unit lane + 32 r of the run's rows x units of each field.
+  // r < units is the same for the whole warp, so the shuffles stay uniform.
+  for (int r = 0; r < f.max_units; ++r) {
+    uint4 v[kMaxFields];
+    long long dst[kMaxFields];
+#pragma unroll
+    for (int k = 0; k < kMaxFields; ++k) {
+      dst[k] = -1;
+      if (k >= f.n || r >= f.units[k]) continue;
+      const int u = lane + 32 * r;
+      const int owner = u / f.units[k];
+      const int unit = u - owner * f.units[k];
+      const long long s_row = __shfl_sync(full, src, owner);
+      const long long row = run + owner;
+      if (row >= n_out) continue;
+      const void* base = row < B ? f.demo[k] : f.gen[k];
+      const long long at = s_row * f.units[k] + unit;
+      if (f.vec[k]) {
+        v[k] = static_cast<const uint4*>(base)[at];
+      } else {
+        v[k].x = static_cast<const uint32_t*>(base)[at];
+      }
+      dst[k] = row * f.units[k] + unit;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxFields; ++k) {
+      if (dst[k] < 0) continue;
+      if (f.vec[k]) {
+        static_cast<uint4*>(f.out[k])[dst[k]] = v[k];
+      } else {
+        static_cast<uint32_t*>(f.out[k])[dst[k]] = v[k].x;
+      }
+    }
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-extern "C" int itt_assemble_rows(const void* demo, const void* gen,
-                                 const void* e_idx, const void* g_idx,
-                                 void* out, long long n_demo, long long n_gen,
-                                 int B, int F, void* stream) {
-  const long long total = 2LL * B * F;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;  // grid-stride loop covers the rest
-  assemble_rows_kernel<<<static_cast<int>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(demo), static_cast<const uint32_t*>(gen),
-      static_cast<const int32_t*>(e_idx), static_cast<const int32_t*>(g_idx),
-      static_cast<uint32_t*>(out), n_demo, n_gen, B, F);
+// Assembles n fields in one launch. demo[k], gen[k] and out[k] are field k's
+// bases and words[k] its 4-byte words per row; every field has n_demo demo
+// rows and n_gen gen rows. Returns cudaErrorInvalidValue for n outside
+// [1, kMaxFields] or a field of no words.
+extern "C" int itt_assemble_fields(const void* const* demo, const void* const* gen,
+                                   void* const* out, const int* words, int n,
+                                   const void* e_idx, const void* g_idx, long long n_demo,
+                                   long long n_gen, int B, void* stream) {
+  if (n < 1 || n > kMaxFields) return static_cast<int>(cudaErrorInvalidValue);
+  Fields f{};
+  f.n = n;
+  for (int k = 0; k < n; ++k) {
+    if (words[k] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = words[k] % 4 == 0 && aligned16(demo[k]) && aligned16(gen[k]) &&
+                     aligned16(out[k]);
+    f.demo[k] = demo[k];
+    f.gen[k] = gen[k];
+    f.out[k] = out[k];
+    f.vec[k] = vec;
+    f.units[k] = vec ? words[k] / 4 : words[k];
+    f.max_units = f.units[k] > f.max_units ? f.units[k] : f.max_units;
+  }
+  const long long n_out = 2LL * B;
+  if (n_out <= 0) return static_cast<int>(cudaGetLastError());
+  const long long ctas = (n_out + kThreads - 1) / kThreads;
+  assemble_fields_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      f, static_cast<const int32_t*>(e_idx), static_cast<const int32_t*>(g_idx), n_demo, n_gen,
+      B);
   return static_cast<int>(cudaGetLastError());
 }

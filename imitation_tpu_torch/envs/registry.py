@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-from imitation_tpu_torch import Device, default_device
+from imitation_tpu_torch import Device
 from imitation_tpu_torch.envs import classic
 from imitation_tpu_torch.envs.base import Env
 from imitation_tpu_torch.envs.vector import VectorEnv
@@ -45,7 +45,7 @@ def make_vec_env(
         env,
         num_envs=num_envs,
         max_episode_steps=max_episode_steps,
-        device=default_device(device),
+        device=device,
     )
 
 

@@ -22,6 +22,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from imitation_tpu_torch import Device, default_device
 from imitation_tpu_torch.envs.base import Env, Space
 
 
@@ -66,14 +67,14 @@ class VectorEnv:
         env: Env,
         num_envs: int,
         max_episode_steps: Optional[int] = None,
-        device: Optional[torch.device] = None,
+        device: Optional[Device] = None,  # CUDA unless the caller says "cpu"
     ):
         self.env = env
         self.num_envs = num_envs
         self.max_episode_steps = (
             max_episode_steps if max_episode_steps is not None else env.max_episode_steps
         )
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = default_device(device)
 
     @property
     def observation_space(self) -> Space:

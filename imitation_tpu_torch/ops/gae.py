@@ -9,13 +9,17 @@ Port of ``imitation_tpu/ops/gae.py`` and of the TPU kernel in
 ``next_values`` are V of the true next observation (the terminal one at
 episode ends), so time-limit bootstrapping needs no special case.
 
-``gae`` launches the CUDA kernel (``csrc/gae.cu``) for CUDA tensors and takes
-``gae_plain`` for CPU tensors. ``discounted_returns`` is plain PyTorch.
+``gae`` launches the CUDA kernel (``csrc/gae.cu``, a segmented reverse scan
+fed from shared memory) for CUDA tensors and takes ``gae_plain`` for CPU
+tensors. The kernel composes the steps of a segment into one affine map, so
+it sums in another order than ``gae_plain`` and agrees with it to float32
+rounding, not bit for bit. ``discounted_returns`` is plain PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +83,8 @@ def gae(
     adv = torch.empty_like(rews)
     ret = torch.empty_like(rews)
     T, B = rews.shape
+    if T == 0 or B == 0:
+        return adv, ret
     kernels.check(lib.itt_gae_forward(
         *(p.data_ptr() for p in panels), adv.data_ptr(), ret.data_ptr(),
         T, B, _f32(gamma), _f32(lam), kernels.stream(rews.device),
@@ -88,6 +94,14 @@ def gae(
 
 
 gae.launches = 0
+
+
+def launch_shape(T: int, B: int) -> Dict[str, int]:
+    """The grid the CUDA kernel takes for ``[T, B]`` panels (needs the built library)."""
+    out = (ctypes.c_int * 7)()
+    kernels.load().itt_gae_launch_shape(T, B, out)
+    keys = ("ctas", "threads", "cols", "segments", "segment_rows", "chunks", "smem_bytes")
+    return dict(zip(keys, out))
 
 
 def discounted_returns(

@@ -73,8 +73,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.itt_gae_forward.argtypes = [ptr] * 7 + [i32, i32, f32, f32, ptr]
     lib.itt_gae_forward.restype = i32
-    lib.itt_assemble_rows.argtypes = [ptr] * 5 + [i64, i64, i32, i32, ptr]
-    lib.itt_assemble_rows.restype = i32
+    lib.itt_gae_launch_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.itt_gae_launch_shape.restype = None
+    lib.itt_assemble_fields.argtypes = (
+        [ctypes.POINTER(ptr)] * 3 + [ctypes.POINTER(i32), i32, ptr, ptr, i64, i64, i32, ptr]
+    )
+    lib.itt_assemble_fields.restype = i32
     lib.itt_error_string.argtypes = [i32]
     lib.itt_error_string.restype = ctypes.c_char_p
 

@@ -1,8 +1,9 @@
 """Disc-batch assembly in imitation_tpu_torch against the JAX package.
 
-The port's ``assemble_rows`` takes its plain version for CPU tensors (the
-CUDA kernel B2 is held against that plain version on the card by
-``chip_smoke.py``). A gather copies values, so the comparison is exact.
+The port's ``assemble_fields`` and ``assemble_rows`` take their plain
+version for CPU tensors (the CUDA kernel B2, one launch for all fields, is
+held against that plain version on the card by ``chip_smoke.py``). A gather
+copies values, so the comparison is exact.
 """
 
 import jax.numpy as jnp
@@ -12,7 +13,13 @@ import torch
 
 from imitation_tpu.ops.disc_assembly import assemble_rows as jax_assemble
 from imitation_tpu.ops.disc_assembly import assemble_rows_pallas
+import imitation_tpu_torch.algorithms.adversarial.common as torch_common
+from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+from imitation_tpu_torch.envs import make_vec_env
 from imitation_tpu_torch.ops import disc_assembly
+from imitation_tpu_torch.rl.ppo import PPOConfig
+from imitation_tpu_torch.testing import experts
+from imitation_tpu_torch.util.logger import configure
 
 torch.set_num_threads(1)
 
@@ -85,6 +92,80 @@ def test_rejects_bad_inputs():
         disc_assembly.assemble_rows(demo, gen, e_idx, g_idx[:2])
     with pytest.raises(ValueError):
         disc_assembly.assemble_rows(demo[::2], gen, e_idx, g_idx)  # not contiguous
-    launches = disc_assembly.assemble_rows.launches
+    launches = disc_assembly.assemble_fields.launches
     disc_assembly.assemble_rows(demo, gen, e_idx, g_idx)
-    assert disc_assembly.assemble_rows.launches == launches  # no kernel on CPU tensors
+    assert disc_assembly.assemble_fields.launches == launches  # no kernel on CPU tensors
+
+
+# The four fields of a disc step: obs f32 [., 4], acts int32 [.], next_obs
+# f32 [., 4], dones f32 [.]; and a field of F = 3 (not a whole 16 bytes).
+DISC_FIELDS = (("obs", 4, np.float32), ("acts", None, np.int32),
+               ("next_obs", 4, np.float32), ("dones", None, np.float32))
+
+
+@pytest.mark.parametrize("extra_f3", [False, True])
+@pytest.mark.parametrize("N,C,B,lo,hi", [
+    (300, 640, 64, None, None),  # indices in range
+    (12, 9, 40, -30, 30),  # out of range both ways, as JAX's x[idx] reads them
+])
+def test_fused_fields_match_jax_and_pallas(N, C, B, lo, hi, extra_f3):
+    kinds = DISC_FIELDS + ((("wide", 3, np.float32),) if extra_f3 else ())
+    rng = np.random.default_rng(N + C + B)
+    e_idx = rng.integers(0 if lo is None else lo, N if hi is None else hi, B).astype(np.int32)
+    g_idx = rng.integers(0 if lo is None else lo, C if hi is None else hi, B).astype(np.int32)
+    fields = [_case(N, C, 1, F, dtype, seed=k)[:2] for k, (_, F, dtype) in enumerate(kinds)]
+    got = disc_assembly.assemble_fields(
+        [(torch.from_numpy(d), torch.from_numpy(g)) for d, g in fields],
+        torch.from_numpy(e_idx), torch.from_numpy(g_idx),
+    )
+    assert len(got) == len(kinds)
+    je, jg = jnp.asarray(e_idx), jnp.asarray(g_idx)
+    for out, (demo, gen), (name, F, dtype) in zip(got, fields, kinds):
+        out = out.numpy()
+        assert out.dtype == dtype and out.shape == (2 * B,) + demo.shape[1:], name
+        np.testing.assert_array_equal(
+            out, np.asarray(jax_assemble(jnp.asarray(demo), jnp.asarray(gen), je, jg)), err_msg=name)
+        # The Pallas kernel takes [N, F] fields; a [N] field is F = 1.
+        col = (lambda x: x) if F is not None else (lambda x: x[:, None])
+        pallas = np.asarray(assemble_rows_pallas(
+            jnp.asarray(col(demo)), jnp.asarray(col(gen)), je, jg, interpret=True))
+        np.testing.assert_array_equal(out, pallas if F is not None else pallas[:, 0], err_msg=name)
+
+
+def test_fused_fields_reject_bad_inputs():
+    (d4, g4, e_idx, g_idx), (d1, g1) = (
+        map(torch.from_numpy, _case(8, 8, 4, 4, np.float32, seed=8)),
+        map(torch.from_numpy, _case(8, 8, 4, None, np.int32, seed=9)[:2]),
+    )
+    with pytest.raises(ValueError, match="fields"):
+        disc_assembly.assemble_fields([], e_idx, g_idx)
+    with pytest.raises(ValueError, match="fields"):
+        disc_assembly.assemble_fields([(d4, g4)] * (disc_assembly.MAX_FIELDS + 1), e_idx, g_idx)
+    with pytest.raises(ValueError, match="same demo rows"):
+        disc_assembly.assemble_fields([(d4, g4), (d1[:5], g1)], e_idx, g_idx)
+    with pytest.raises(TypeError):
+        disc_assembly.assemble_fields([(d4, g4), (d1.long(), g1.long())], e_idx, g_idx)
+    launches = disc_assembly.assemble_fields.launches
+    obs, acts = disc_assembly.assemble_fields([(d4, g4), (d1, g1)], e_idx, g_idx)
+    assert obs.shape == (8, 4) and acts.shape == (8,) and acts.dtype == torch.int32
+    assert disc_assembly.assemble_fields.launches == launches  # no kernel on CPU tensors
+
+
+def test_disc_step_assembles_its_batch_in_one_call(monkeypatch):
+    calls = []
+    real = torch_common.assemble_fields
+
+    def counted(fields, e_idx, g_idx):
+        calls.append(len(fields))
+        return real(fields, e_idx, g_idx)
+
+    monkeypatch.setattr(torch_common, "assemble_fields", counted)
+    demo_venv = make_vec_env("CartPole-v1", num_envs=4, max_episode_steps=20, device="cpu")
+    demos = experts.generate_expert_trajectories("CartPole-v1", demo_venv, min_episodes=4, seed=0)
+    venv = make_vec_env("CartPole-v1", num_envs=4, device="cpu")
+    tr = GAIL(demonstrations=demos, demo_batch_size=16, venv=venv,
+              gen_config=PPOConfig(n_steps=8, n_minibatches=2, n_epochs=1),
+              n_disc_updates_per_round=2, custom_logger=configure(format_strs=()), seed=0)
+    tr.train(2 * tr.gen_train_timesteps)
+    assert tr.disc_state.step == 4
+    assert calls == [4] * 4  # one call per disc step, all four fields in it

@@ -15,7 +15,7 @@ import torch
 from imitation_tpu.envs import make_vec_env as jax_make_vec_env
 from imitation_tpu.envs.classic import ArrayState
 from imitation_tpu.envs.classic import CartPole as JaxCartPole
-from imitation_tpu_torch.envs import make_vec_env
+from imitation_tpu_torch.envs import VectorEnv, make_vec_env
 from imitation_tpu_torch.envs.classic import CartPole
 
 torch.set_num_threads(1)
@@ -129,3 +129,17 @@ def test_registry_and_default_device():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_vec_env("CartPole-v1")
+
+
+def test_vector_env_defaults_to_the_card(monkeypatch):
+    # Built directly, without a device, a VectorEnv (and so a PPO or GAIL
+    # trainer that takes its device from it) resolves to CUDA, and raises
+    # where there is none; the CPU is used only when asked for.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VectorEnv(CartPole(), 4)
+    venv = VectorEnv(CartPole(), 4, device="cpu")
+    assert venv.device == torch.device("cpu")
+    state = venv.reset(torch.Generator().manual_seed(0))
+    state, out = venv.step(state, torch.ones(4, dtype=torch.int32))
+    assert out.obs.shape == (4, 4) and out.obs.device.type == "cpu"
