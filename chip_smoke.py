@@ -7,29 +7,49 @@ Phases, each timed and printed on its own line:
 
 1. device: the card's name and power limit (nvidia-smi); exits non-zero
    without CUDA.
-2. build: compiles the CUDA kernels (one nvcc call) and loads them.
-3. kernels: holds each kernel against its plain PyTorch version at the GAIL
-   CartPole shapes and at edge shapes: B1 GAE allclose at rtol = atol = 1e-5
+2. build: compiles the CUDA kernels (one nvcc per source, all started
+   together, then one link) and loads them.
+3. kernels: holds each kernel against its plain PyTorch version at the main
+   paths' shapes and at edge shapes. B1 GAE allclose at rtol = atol = 1e-5
    (it composes segments of the scan, so it sums in another order), printing
-   its grid at each shape; B2 disc-batch assembly exactly, the four fields of
-   a disc step in one launch, plus a field of F = 3 and fields whose base is
-   offset by one element (the word path and the misaligned path). Times the
-   kernel and its plain version and, for B2, the yardstick of four x
-   (``index_select`` x 2 + ``cat``), with CUDA events (median of repeats);
-   B1 at [128, 1024], [64, 64] and [2048, 4096], B2 per disc step.
-   ``device_ms`` is the kernel's own device time from a torch.profiler trace
-   (``ms`` is the time per call, wrapper and launch included).
+   its grid at each shape; the main paths' [128, 1024] and [256, 8] with
+   float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
+   CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
+   the latter also at the CLI defaults' sizes, each four fields in one
+   launch; the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
+   [., 2, 2]), alone and mixed with word fields and offset bases;
+   out-of-range indices. Times each kernel and its plain version and, for
+   B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
+   CUDA events (median of repeats); B1 at [128, 1024], [64, 64] and
+   [2048, 4096], B2 per disc step. ``device_ms`` is the kernel's own device
+   time from a torch.profiler trace (``ms`` is the time per call, wrapper
+   and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
-   update on the CPU, and the trained reward net's GPU forward against its
-   CPU forward.
-5. gail: GAIL on device CartPole-v1 at the headline configuration (1024 envs
+   update on the CPU.
+5. envs: each classic-control env added after CartPole, at 1024 envs: one
+   step on the card against the same step on the CPU, then 200 steps under
+   the scripted expert (random actions where there is none), with finite
+   observations and one truncation per episode that reaches the horizon.
+6. gail: GAIL on device CartPole-v1 at the headline configuration (1024 envs
    x 128 steps, PPO 32 minibatches x 5 epochs, demo batch 2048, 2 disc
    updates per round) with demos made on the card by the scripted expert:
-   one warm-up round, then two rounds of ``train`` with the kernels' launch
-   counts set to 0 just before and read just after (B1 once per round, B2
-   once per disc step); then one more round
-   under torch.profiler, split by the port's ``record_function`` phases
-   (host and kernel time of each, busy share, top kernels).
+   one warm-up round, then two rounds of ``train``; then one more round under
+   torch.profiler, split by the port's ``record_function`` ranges (host and
+   kernel time of each, busy share, top kernels).
+7. airl: AIRL on device Pendulum-v1 at the same widths, with a (32, 32)
+   DiagGaussian policy, ``BasicShapedRewardNet`` and 64 expert episodes of
+   200 steps: one warm-up round, two rounds of ``train``, two of
+   ``train_fused(rounds_per_sync=2)`` on a fresh trainer (its replay ring
+   sized by ``_example_transitions``), the test reward against the train
+   reward, one profiled round; then one round at the JAX CLI's defaults (8
+   envs x 256 steps, demo batch 1024, 4 disc updates, 10 expert episodes).
+8. rl: ``PPO.learn`` on device Pendulum-v1 for 2 iterations at 1024 x 128
+   with the linear learning rate, printed after each.
+
+Every path (gail, airl, airl_fused, airl_cli, rl) is driven with the
+kernels' launch counts set to 0 just before it and read just after: B1 must
+launch once per round or iteration and B2 once per disc step. The reward
+nets' forward on the card is held against a CPU copy on 4096 replay rows.
 
 Then one JSON line listing the kernels, the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -37,6 +57,7 @@ line ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -128,22 +149,41 @@ def check_kernels(torch, dev):
         return r, v, nv, term, torch.maximum(term, trunc)
 
     gamma, lam = 0.99, 0.95
-    timed = ((128, 1024), (64, 64), (2048, 4096))  # main path, HalfCheetah path, large
-    kept, err_path = {}, None
-    for T, B in ((128, 1024), (64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
-        p = panels(T, B)
-        adv, ret = gae.gae(*p, gamma, lam)
+
+    def check_gae(T, B, p, flags=None, what=""):
+        adv, ret = gae.gae(*(p if flags is None else p[:3] + flags), gamma, lam)
         adv_p, ret_p = gae.gae_plain(*p, gamma, lam)
         err = max((adv - adv_p).abs().max().item(), (ret - ret_p).abs().max().item())
         if not (torch.allclose(adv, adv_p, rtol=1e-5, atol=1e-5)
                 and torch.allclose(ret, ret_p, rtol=1e-5, atol=1e-5)):
-            raise AssertionError(f"GAE kernel disagrees with plain at T={T} B={B}: {err}")
-        log("kernels", f"gae T={T} B={B}: max_abs_err {err:.3g} (allclose rtol=atol=1e-5); "
+            raise AssertionError(f"GAE kernel disagrees with plain at T={T} B={B}{what}: {err}")
+        log("kernels", f"gae T={T} B={B}{what}: max_abs_err {err:.3g} (allclose rtol=atol=1e-5); "
                        f"grid {gae.launch_shape(T, B)}")
+        return err
+
+    timed = ((128, 1024), (64, 64), (2048, 4096))  # main path, HalfCheetah path, large
+    kept, err_path = {}, None
+    # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl) and
+    # [256, 8] (airl_cli); then the HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8))
+    err_path = 0.0
+    for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
+        p = panels(T, B)
+        err = check_gae(T, B, p)
         if (T, B) in timed:
             kept[(T, B)] = p
-        if (T, B) == (128, 1024):
-            err_path = err
+        if (T, B) in main:
+            err_path = max(err_path, err)
+    # Bool flag panels, as a caller may pass them: gae casts them to float32
+    # (the plain version is given the float32 panels), and truncations that
+    # are not terminations, as Pendulum's horizon of 200 cuts 128-step chunks
+    # (and the CLI's 256-step chunks).
+    for T, B in main:
+        p = panels(T, B)
+        trunc = torch.rand((T, B), generator=g, device=dev) < 0.05
+        p = p[:4] + (torch.maximum(p[3], trunc.float()),)
+        err_path = max(err_path, check_gae(T, B, p, (p[3].bool(), p[4].bool()),
+                                           " with bool terminated/dones panels"))
     gae_rows = {}
     for T, B in timed:
         p = kept[(T, B)]
@@ -170,85 +210,174 @@ def check_kernels(torch, dev):
         grid=gae.launch_shape(T, B),
     ))
 
-    # -- B2 disc-batch assembly: one launch for a disc step's four fields -----------
-    def field(rows, F, dtype, offset=0):
-        """[rows] or [rows, F]; ``offset`` words into a larger buffer, so the
-        base is only 4-byte aligned when offset is odd."""
-        n = rows * (F or 1) + offset
-        if dtype == torch.int32:
-            flat = torch.randint(-1000, 1000, (n,), generator=g, device=dev, dtype=torch.int32)
+    # -- B2 disc-batch assembly: one launch for a disc step's fields ----------------
+    def field(rows, trailing, dtype, offset=0):
+        """[rows, *trailing] of ``dtype``; ``offset`` elements into a larger
+        buffer, so the base is not aligned to the row when offset is odd."""
+        n = rows * math.prod(trailing) + offset
+        if dtype == torch.bool:
+            flat = torch.rand((n,), generator=g, device=dev) < 0.5
+        elif dtype.is_floating_point:
+            flat = torch.randn((n,), generator=g, device=dev).to(dtype)
         else:
-            flat = torch.randn((n,), generator=g, device=dev)
-        flat = flat[offset:]
-        return flat if F is None else flat.view(rows, F)
+            flat = torch.randint(-100, 100, (n,), generator=g, device=dev).to(dtype)
+        return flat[offset:].view((rows,) + tuple(trailing))
 
     def idx(n, lo, hi):
         return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
 
+    errs = []  # max abs error of every assembled field
+
+    def describe(kinds):
+        return [(tuple(tr), str(dt).split(".")[-1], off) for tr, dt, off in kinds]
+
     def check_fused(name, n, c, b, kinds, spread=0):
-        pairs = [(field(n, F, dt, off), field(c, F, dt, off)) for F, dt, off in kinds]
+        pairs = [(field(n, tr, dt, off), field(c, tr, dt, off)) for tr, dt, off in kinds]
         e = idx(b, -spread, n + spread) if spread else idx(b, 0, n)
         gi = idx(b, -spread, c + spread) if spread else idx(b, 0, c)
         outs = disc_assembly.assemble_fields(pairs, e, gi)
-        err = 0.0
         for out, (d, gr) in zip(outs, pairs):
             want = disc_assembly.assemble_rows_plain(d, gr, e, gi)
-            if not torch.equal(out, want):
+            if out.dtype != want.dtype or not torch.equal(out, want):
                 raise AssertionError(f"fused assembly disagrees with plain on {name}")
-            err = max(err, (out.double() - want.double()).abs().max().item())
-        log("kernels", f"assemble_fields {name} [{n}|{c}] B={b}, fields (F, dtype, offset) "
-                       f"{[(F, str(dt).split('.')[-1], off) for F, dt, off in kinds]}: exact, one launch")
-        return pairs, e, gi, err
+            if out.numel():
+                errs.append((out.double() - want.double()).abs().max().item())
+        log("kernels", f"assemble_fields {name} [{n}|{c}] B={b}, fields (row shape, dtype, offset) "
+                       f"{describe(kinds)}: exact, one launch")
+        return pairs, e, gi
+
+    def b2_bytes(pairs, b):  # indices read once; each row read once and written once
+        return 2 * b * 4 + sum(2 * 2 * b * d[0].numel() * d.element_size() for d, _ in pairs)
+
+    def time_b2(what, pairs, e, gi, b):
+        fused = lambda: disc_assembly.assemble_fields(pairs, e, gi)
+        plain = lambda: [disc_assembly.assemble_rows_plain(d, gr, e, gi) for d, gr in pairs]
+        yardstick = lambda: [torch.cat([torch.index_select(d, 0, e), torch.index_select(gr, 0, gi)])
+                             for d, gr in pairs]  # one PyTorch call chain per field
+        row = dict(ms=cuda_ms(fused, reps=200), plain_ms=cuda_ms(plain, reps=100),
+                   library_ms=cuda_ms(yardstick, reps=200),
+                   device_ms=device_ms(fused, 50, "assemble_fields_kernel"),
+                   library_device_ms=device_ms(yardstick, 50, ""),
+                   bound_ms=b2_bytes(pairs, b) / HBM_BYTES_PER_S * 1e3, bytes=b2_bytes(pairs, b))
+        log("kernels", f"assemble_fields {what} ({row['bytes']} bytes, grid {-(-2 * b // 128)} x 128): "
+                       f"call {row['ms']:.4f} ms, device {row['device_ms']} ms, plain {row['plain_ms']:.4f} ms, "
+                       f"{len(pairs)} x (index_select+index_select+cat) call {row['library_ms']:.4f} ms "
+                       f"device {row['library_device_ms']} ms, bound {row['bound_ms']:.6f} ms")
+        return row
 
     f32, i32 = torch.float32, torch.int32
     N, C, Bd = 12800, 131072, 2048  # demo rows, replay rows, demo_batch_size
-    disc_kinds = ((4, f32, 0), (None, i32, 0), (4, f32, 0), (None, f32, 0))  # obs acts next_obs dones
-    pairs, e_o, g_o, err_b2 = check_fused("disc step", N, C, Bd, disc_kinds)
+    # GAIL CartPole: obs [., 4] f32, acts [.] int32, next_obs [., 4] f32, dones [.] f32.
+    gail_kinds = (((4,), f32, 0), ((), i32, 0), ((4,), f32, 0), ((), f32, 0))
+    # AIRL Pendulum: obs [., 3] f32 (12-byte rows: the word path), acts [., 1] f32,
+    # next_obs [., 3] f32, dones [.] f32.
+    airl_kinds = (((3,), f32, 0), ((1,), f32, 0), ((3,), f32, 0), ((), f32, 0))
+    # Rows that are not whole words, and ranks above 2: the byte path.
+    byte_kinds = (((2, 2), torch.uint8, 0), ((), torch.bool, 0), ((3,), torch.float16, 0),
+                  ((2, 2), f32, 0))
+    gail = check_fused("GAIL disc step", N, C, Bd, gail_kinds)
+    airl = check_fused("AIRL disc step", N, C, Bd, airl_kinds)
+    # The AIRL round at the CLI's defaults: 10 expert episodes of 200 rows, a
+    # replay ring of 8 envs x 256 steps, demo batch 1024.
+    check_fused("AIRL disc step at the CLI defaults", 2000, 2048, 1024, airl_kinds)
+    byte = check_fused("byte path, disc-step size", N, C, Bd, byte_kinds)
     for name, kinds, n, c, b, spread in (
-        ("edge-1row", ((1, f32, 0),), 5, 5, 1, 0),
-        ("edge-out-of-range", ((3, f32, 0),), 12, 9, 40, 30),
-        ("edge-1d-out-of-range", ((None, i32, 0),), 12, 9, 40, 30),
-        ("F=3 word path", ((3, f32, 0),), N, C, Bd, 0),
-        ("1-D base offset by one element", ((None, f32, 1),), N, C, Bd, 0),
+        ("edge-1row", (((1,), f32, 0),), 5, 5, 1, 0),
+        ("edge-out-of-range", (((3,), f32, 0),), 12, 9, 40, 30),
+        ("edge-1d-out-of-range", (((), i32, 0),), 12, 9, 40, 30),
+        ("edge-empty-rows beside a 1-D field", (((0,), f32, 0), ((), f32, 0)), 12, 9, 40, 30),
+        ("F=3 word path", (((3,), f32, 0),), N, C, Bd, 0),
+        ("1-D base offset by one element", (((), f32, 1),), N, C, Bd, 0),
         ("mixed: aligned F=4, F=3, offset 1-D, offset F=4",
-         ((4, f32, 0), (3, i32, 0), (None, f32, 1), (4, f32, 1)), 300, 700, 257, 40),
+         (((4,), f32, 0), ((3,), i32, 0), ((), f32, 1), ((4,), f32, 1)), 300, 700, 257, 40),
+        ("byte path out of range: uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]",
+         byte_kinds, 12, 9, 40, 30),
+        ("byte path mixed with words and offset bases",
+         byte_kinds + (((4,), f32, 1), ((), torch.int64, 0), ((3,), torch.uint8, 1),
+                       ((1,), torch.float64, 0)), 300, 700, 257, 40),
     ):
-        err_b2 = max(err_b2, check_fused(name, n, c, b, kinds, spread)[3])
+        check_fused(name, n, c, b, kinds, spread)
 
-    def fused():
-        return disc_assembly.assemble_fields(pairs, e_o, g_o)
-
-    def plain_step():
-        return [disc_assembly.assemble_rows_plain(d, gr, e_o, g_o) for d, gr in pairs]
-
-    def yardstick():  # four x (two index_select + cat): one PyTorch call chain per field
-        return [torch.cat([torch.index_select(d, 0, e_o), torch.index_select(gr, 0, g_o)])
-                for d, gr in pairs]
-
-    ms_b2 = cuda_ms(fused, reps=200)
-    plain_b2 = cuda_ms(plain_step, reps=100)
-    lib_b2 = cuda_ms(yardstick, reps=200)
-    dev_b2 = device_ms(fused, 50, "assemble_fields_kernel")
-    lib_dev_b2 = device_ms(yardstick, 50, "")
-    obs_only = lambda: disc_assembly.assemble_rows(pairs[0][0], pairs[0][1], e_o, g_o)
-    dev_obs = device_ms(obs_only, 50, "assemble_fields_kernel")
-    b2_bytes = 2 * Bd * 4 + sum(2 * 2 * Bd * 4 * (d.shape[1] if d.dim() == 2 else 1) for d, _ in pairs)
-    bound_b2 = b2_bytes / HBM_BYTES_PER_S * 1e3
-    ctas_b2 = -(-2 * Bd // 128)
+    gail_row = time_b2("GAIL disc step (4 fields)", *gail, Bd)
+    airl_row = time_b2("AIRL disc step (4 fields)", *airl, Bd)
+    byte_row = time_b2("byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])", *byte, Bd)
+    dev_obs = device_ms(lambda: disc_assembly.assemble_rows(gail[0][0][0], gail[0][0][1], gail[1], gail[2]),
+                        50, "assemble_fields_kernel")
+    log("kernels", f"assemble_fields GAIL obs field alone: device {dev_obs} ms")
     entries.append(dict(
         name="assemble_rows", route="cuda", source="imitation_tpu_torch/csrc/disc_assembly.cu",
-        replaces="imitation_tpu/ops/disc_assembly.py:36",
-        max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2, bound_ms=bound_b2, bound_by="bytes",
-        library_ms=lib_b2, device_ms=dev_b2, library_device_ms=lib_dev_b2,
-        shape=f"one disc step, 4 fields in one launch: demo [{N}], replay [{C}], B={Bd}; "
+        replaces="imitation_tpu/ops/disc_assembly.py:36", max_abs_err=max(errs),
+        **{k: gail_row[k] for k in ("ms", "plain_ms", "bound_ms")}, bound_by="bytes",
+        library_ms=gail_row["library_ms"], device_ms=gail_row["device_ms"],
+        library_device_ms=gail_row["library_device_ms"],
+        shape=f"GAIL disc step, 4 fields in one launch: demo [{N}], replay [{C}], B={Bd}; "
               f"obs/next_obs [., 4] f32, acts [.] int32, dones [.] f32",
-        grid={"ctas": ctas_b2, "threads": 128},
+        grid={"ctas": -(-2 * Bd // 128), "threads": 128},
+        airl_disc_step=dict(airl_row, shape="obs/next_obs [., 3] f32, acts [., 1] f32, dones [.] f32"),
+        byte_path=dict(byte_row, shape="uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]"),
     ))
-    log("kernels", f"assemble_fields disc step (4 fields, {b2_bytes} bytes, grid {ctas_b2} x 128): "
-                   f"call {ms_b2:.4f} ms, device {dev_b2} ms (obs field alone {dev_obs} ms), "
-                   f"plain {plain_b2:.4f} ms, 4 x (index_select+index_select+cat) call {lib_b2:.4f} ms "
-                   f"device {lib_dev_b2} ms, bound {bound_b2:.6f} ms")
     return entries
+
+
+def run_envs(torch, dev, n=1024, steps=200):
+    """Each newly registered env on the card: one step from the same states
+    and actions as on the CPU, then ``steps`` steps under the scripted expert
+    (random actions where there is none)."""
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.testing import experts
+
+    tols = {"Pendulum": 1e-6, "MountainCar": 1e-6, "MountainCarContinuous": 1e-6, "Acrobot": 1e-5}
+    for name in ("Pendulum-v1", "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1",
+                 "seals/MountainCar-v0", "seals/Pendulum-v0"):
+        t0 = time.perf_counter()
+        venv = make_vec_env(name, num_envs=n, device=dev)
+        env, space, horizon = venv.env, venv.action_space, venv.max_episode_steps
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def random_actions():
+            if space.is_discrete:
+                return torch.randint(0, space.n, (n,), generator=g, device=dev, dtype=torch.int32)
+            lo, hi = float(space.low.min()), float(space.high.max())
+            return lo + (hi - lo) * torch.rand((n,) + space.shape, generator=g, device=dev)
+
+        state = venv.reset(g)
+        acts = random_actions()
+        new, ts = env.step(state.env_state, acts)
+        new_c, ts_c = env.step(state.env_state.cpu(), acts.cpu())
+        tol = tols[type(env).__name__]
+        err = max((new.cpu() - new_c).abs().max().item(), (ts.obs.cpu() - ts_c.obs).abs().max().item(),
+                  (ts.reward.cpu() - ts_c.reward).abs().max().item())
+        if not (torch.allclose(new.cpu(), new_c, rtol=tol, atol=tol)
+                and torch.allclose(ts.obs.cpu(), ts_c.obs, rtol=tol, atol=tol)
+                and torch.allclose(ts.reward.cpu(), ts_c.reward, rtol=tol, atol=tol)
+                and torch.equal(ts.terminated.cpu(), ts_c.terminated)):
+            raise AssertionError(f"{name}: the card's step disagrees with the CPU's ({err})")
+        expert = experts.EXPERTS.get(name)
+        n_trunc, n_term, expected = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3))
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        returns = []
+        for _ in range(steps):
+            acts = expert(state.obs)[0] if expert is not None else random_actions()
+            state, out = venv.step(state, acts)
+            finite &= torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all()
+            n_trunc += out.truncated.sum()
+            n_term += out.terminated.sum()
+            expected += ((out.episode_length == horizon) & ~out.terminated).sum()
+            returns.append(torch.where(out.done, out.episode_return, torch.nan))
+        n_trunc, n_term, expected = n_trunc.item(), n_term.item(), expected.item()
+        ret = torch.stack(returns)
+        ret_mean = ret[~torch.isnan(ret)].mean().item() if (~torch.isnan(ret)).any() else float("nan")
+        log("envs", f"{name} x{n}: step vs CPU max abs diff {err:.3g} (allclose {tol:g}); "
+                    f"{steps} steps under {'the scripted expert' if expert else 'random actions'}: "
+                    f"{n_term} terminations, {n_trunc} truncations (horizon {horizon}), "
+                    f"episode return mean {ret_mean:.4g}, {time.perf_counter() - t0:.2f} s")
+        if not bool(finite):
+            raise AssertionError(f"{name}: non-finite observations or rewards")
+        if n_trunc != expected:
+            raise AssertionError(f"{name}: {n_trunc} truncations, expected {expected}")
+        if horizon <= steps and name in ("Pendulum-v1", "seals/Pendulum-v0", "seals/MountainCar-v0") \
+                and n_trunc != n * (steps // horizon):
+            raise AssertionError(f"{name}: every env should truncate at its horizon")
 
 
 def reference_check(torch, dev):
@@ -294,13 +423,22 @@ def reference_check(torch, dev):
         raise AssertionError("GPU PPO update disagrees with the CPU one")
 
 
-def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
-    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
-    from imitation_tpu_torch.data.rollout import rollout_stats
-    from imitation_tpu_torch.envs import make_vec_env
+def counts():
+    """The kernels' launch counts, by the names of the ``kernels`` line."""
     from imitation_tpu_torch.ops import disc_assembly, gae
-    from imitation_tpu_torch.rl.ppo import PPOConfig
-    from imitation_tpu_torch.testing import experts
+
+    return {"gae": gae.gae.launches, "assemble_rows": disc_assembly.assemble_fields.launches}
+
+
+def zero_counts() -> None:
+    from imitation_tpu_torch.ops import disc_assembly, gae
+
+    gae.gae.launches = 0
+    disc_assembly.assemble_fields.launches = 0
+
+
+def make_logger():
+    """A port logger that keeps every row it dumps (``logger.rows``)."""
     from imitation_tpu_torch.util.logger import KVWriter, configure
 
     class Capture(KVWriter):
@@ -310,19 +448,99 @@ def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
         def write(self, kvs, step):
             self.rows.append(dict(kvs))
 
-    t0 = time.perf_counter()
-    demo_venv = make_vec_env("CartPole-v1", num_envs=64, max_episode_steps=100, device=dev)
-    demos = experts.generate_expert_trajectories("CartPole-v1", demo_venv, min_episodes=64, seed=0)
-    stats = rollout_stats(demos)
-    log("gail", f"expert demos: {stats['n_traj']} episodes, {sum(len(d) for d in demos)} rows, "
-                f"return mean {stats['return_mean']} in {time.perf_counter() - t0:.2f} s")
-    if stats["return_min"] != 100.0:
-        raise AssertionError("the scripted expert should balance every 100-step episode")
-
-    venv = make_vec_env("CartPole-v1", num_envs=num_envs, max_episode_steps=500, device=dev)
     logger = configure(format_strs=())
     capture = Capture()
     logger.default_logger.output_formats.append(capture)
+    logger.rows = capture.rows
+    return logger
+
+
+def expert_demos(torch, phase, env_name, num_envs, min_episodes, dev, **venv_kw):
+    from imitation_tpu_torch.data.rollout import rollout_stats
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.testing import experts
+
+    t0 = time.perf_counter()
+    demo_venv = make_vec_env(env_name, num_envs=num_envs, device=dev, **venv_kw)
+    demos = experts.generate_expert_trajectories(env_name, demo_venv, min_episodes=min_episodes, seed=0)
+    stats = rollout_stats(demos)
+    log(phase, f"expert demos: {stats['n_traj']} episodes, {sum(len(d) for d in demos)} rows, "
+               f"return mean {stats['return_mean']:.6g} (min {stats['return_min']:.6g}) "
+               f"in {time.perf_counter() - t0:.2f} s")
+    return demos, stats
+
+
+def train_rounds(torch, phase, trainer, rounds, fused=False):
+    """``rounds`` rounds of ``train`` (or of ``train_fused`` with
+    ``rounds_per_sync=rounds``) with the launch counts set to 0 just before
+    and read just after: GAE must launch once per round and B2 once per disc
+    step. Returns (launches, seconds per round)."""
+    round_ends = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    if fused:
+        trainer.train_fused(rounds * trainer.gen_train_timesteps, rounds_per_sync=rounds)
+    else:
+        trainer.train(rounds * trainer.gen_train_timesteps,
+                      callback=lambda r: round_ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = counts()
+    if fused:
+        times = f"{elapsed / rounds:.3f} s per round, one host read"
+    else:
+        per_round = [round_ends[0] - t0] + [b - a for a, b in zip(round_ends, round_ends[1:])]
+        times = f"{', '.join(f'{x:.3f}' for x in per_round)} s per round"
+    log(phase, f"{rounds} rounds of {'train_fused' if fused else 'train'} in {elapsed:.3f} s "
+               f"({times}; {trainer.gen_train_timesteps} env steps each); launches {launches}")
+    for row in trainer.logger.rows[-(1 if fused else rounds):]:
+        log(phase, "logged: " + ", ".join(
+            f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
+                "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/true_rew_mean",
+                "mean/gen/relabeled_rew_mean", "mean/disc/disc_loss", "mean/disc/disc_acc",
+                "mean/disc/disc_acc_expert", "mean/disc/disc_acc_gen")))
+        bad = [k for k in ("mean/gen/loss", "mean/gen/value_loss", "mean/disc/disc_loss")
+               if not math.isfinite(row[k])]
+        if bad:
+            raise AssertionError(f"{phase}: non-finite losses: {bad}")
+    params = list(trainer.policy.parameters()) + list(trainer.reward_net.parameters())
+    if not all(bool(torch.isfinite(p).all()) for p in params):
+        raise AssertionError(f"{phase}: non-finite parameters after training")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{phase}: a kernel of the path was not launched: {launches}")
+    want = {"gae": rounds, "assemble_rows": rounds * trainer.n_disc_updates_per_round}
+    if launches != want:  # GAE once per round, B2 once per disc step
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    return launches, elapsed / rounds
+
+
+def reward_cpu_check(torch, phase, trainer, fn_name="reward_train_fn"):
+    """The reward the generator trains on, on the card and on a CPU copy of
+    the net, over 4096 replay rows; returns the card's values."""
+    data = trainer._gen_buffer_state.data
+    batch = [x[:4096] for x in (data.obs, data.acts, data.next_obs, data.dones)]
+    cpu_net = copy.deepcopy(trainer.reward_net).cpu()
+    fn = getattr(trainer, fn_name)()
+    with torch.no_grad():
+        got = fn(trainer.reward_net, *batch)
+        want = fn(cpu_net, *(x.cpu() for x in batch))
+    err = (got.cpu() - want).abs().max().item()
+    log("reference", f"{phase} {fn_name} GPU vs CPU forward on 4096 replay rows: max abs diff {err:.3g}")
+    if err > 1e-4:
+        raise AssertionError(f"{phase}: GPU reward forward disagrees with the CPU one")
+    return got
+
+
+def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
+    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    demos, stats = expert_demos(torch, "gail", "CartPole-v1", 64, 64, dev, max_episode_steps=100)
+    if stats["return_min"] != 100.0:
+        raise AssertionError("the scripted expert should balance every 100-step episode")
+    venv = make_vec_env("CartPole-v1", num_envs=num_envs, max_episode_steps=500, device=dev)
     trainer = GAIL(
         demonstrations=demos,
         demo_batch_size=demo_batch_size,
@@ -330,104 +548,168 @@ def run_gail(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
         gen_config=PPOConfig(n_steps=n_steps, n_minibatches=32, n_epochs=5),
         n_disc_updates_per_round=2,
         allow_variable_horizon=True,
-        custom_logger=logger,
+        custom_logger=make_logger(),
         seed=0,
     )
     t0 = time.perf_counter()
     trainer.train(trainer.gen_train_timesteps)
     torch.cuda.synchronize()
     log("gail", f"warm-up round {time.perf_counter() - t0:.3f} s")
+    launches, s_per_round = train_rounds(torch, "gail", trainer, 2)
+    reward_cpu_check(torch, "gail", trainer)
+    profile_round(torch, "gail", trainer, s_per_round)
+    return {"gail": launches}, s_per_round
 
-    rounds = 2
-    round_ends = []
-    gae.gae.launches = 0
-    disc_assembly.assemble_fields.launches = 0
-    torch.cuda.synchronize()
+
+def run_airl(torch, dev, num_envs=1024, n_steps=128, demo_batch_size=2048):
+    """AIRL on device Pendulum-v1 at the GAIL headline widths (``train`` and
+    ``train_fused``, each with its launches counted), then one round at the
+    JAX CLI's defaults (scripts/train_adversarial.py)."""
+    from imitation_tpu_torch.algorithms.adversarial.airl import AIRL
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    demos, stats = expert_demos(torch, "airl", "Pendulum-v1", 64, 64, dev)
+    rows = sum(len(d) for d in demos)
+    if stats["n_traj"] != 64 or rows != 12800 or not stats["return_mean"] > -400:
+        raise AssertionError(f"expected 64 expert episodes of 200 steps scoring above -400: {stats}")
+    def make_trainer():
+        return AIRL(
+            demonstrations=demos,
+            demo_batch_size=demo_batch_size,
+            venv=make_vec_env("Pendulum-v1", num_envs=num_envs, device=dev),
+            gen_config=PPOConfig(n_steps=n_steps, n_minibatches=32, n_epochs=5),
+            n_disc_updates_per_round=2,
+            custom_logger=make_logger(),
+            seed=0,
+        )
+
+    trainer = make_trainer()
     t0 = time.perf_counter()
-    trainer.train(rounds * trainer.gen_train_timesteps,
-                  callback=lambda r: round_ends.append(time.perf_counter()))
+    trainer.train(trainer.gen_train_timesteps)
+    torch.cuda.synchronize()
+    log("airl", f"warm-up round {time.perf_counter() - t0:.3f} s; the replay ring's acts "
+                f"{tuple(trainer._gen_buffer_state.data.acts.shape)} "
+                f"{str(trainer._gen_buffer_state.data.acts.dtype)}, demo acts "
+                f"{tuple(trainer._demo_store.batch.acts.shape)}")
+    launches = {}
+    launches["airl"], s_round = train_rounds(torch, "airl", trainer, 2)
+    # train_fused on a fresh trainer, as a user calls it: its replay ring is
+    # sized from _example_transitions before the first round, on the card.
+    fused = make_trainer()
+    launches["airl_fused"], s_fused = train_rounds(torch, "airl", fused, 2, fused=True)
+    ring, demo = fused._gen_buffer_state.data, fused._demo_store.batch
+    log("airl", f"train_fused's ring: obs {tuple(ring.obs.shape)}, acts {tuple(ring.acts.shape)} "
+                f"{str(ring.acts.dtype)}; demo acts {tuple(demo.acts.shape)} {str(demo.acts.dtype)}")
+    if ring.acts.shape[1:] != demo.acts.shape[1:] or ring.acts.dtype != demo.acts.dtype:
+        raise AssertionError("train_fused's replay ring does not match the demos' fields")
+
+    train = reward_cpu_check(torch, "airl", trainer)
+    test = reward_cpu_check(torch, "airl", trainer, "reward_test_fn")
+    diff = (train - test).abs().max().item()
+    log("airl", f"reward_test_fn (the base net) vs reward_train_fn (shaped) on 4096 replay rows: "
+                f"max abs diff {diff:.4g}")
+    if not diff > 0:
+        raise AssertionError("AIRL's test reward should strip the potential shaping")
+    profile_round(torch, "airl", trainer, s_round)
+
+    # One round at the CLI's defaults: 8 envs x 256 steps, batch 64 (32
+    # minibatches), 5 epochs, demo batch 1024, 4 disc updates, 10 expert episodes.
+    cli_demos, _ = expert_demos(torch, "airl", "Pendulum-v1", 8, 10, dev)
+    cli = AIRL(
+        demonstrations=cli_demos[:10],  # the CLI's n_expert_demos
+        demo_batch_size=1024,
+        venv=make_vec_env("Pendulum-v1", num_envs=8, device=dev),
+        gen_config=PPOConfig(n_steps=256, n_minibatches=32, n_epochs=5),
+        n_disc_updates_per_round=4,
+        custom_logger=make_logger(),
+        seed=0,
+    )
+    launches["airl_cli"], s_cli = train_rounds(torch, "airl", cli, 1)
+    return launches, s_round, s_fused
+
+
+def run_rl(torch, dev, num_envs=1024, n_steps=128, iterations=2):
+    """``PPO.learn`` on device Pendulum-v1 with the linear learning rate."""
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+
+    venv = make_vec_env("Pendulum-v1", num_envs=num_envs, device=dev)
+    cfg = PPOConfig(n_steps=n_steps, n_minibatches=32, n_epochs=5, lr_schedule="linear",
+                    total_updates_hint=2 * iterations)
+    ppo = PPO(venv, ActorCriticPolicy(venv.observation_space, venv.action_space), cfg, seed=0)
+    state = ppo.init_state()
+    ppo.train_step(state)  # warm-up iteration (also the first scheduled one)
+    torch.cuda.synchronize()
+    lrs = []
+
+    def callback(s, metrics):
+        lrs.append(s.optimizer.learning_rate)
+        log("rl", f"iteration at {s.timesteps} steps: learning rate now {lrs[-1]:.6g}, "
+                  f"loss {metrics['loss']:.4g}, ep_return_mean {metrics['ep_return_mean']:.4g}")
+        if not math.isfinite(metrics["loss"]):
+            raise AssertionError("rl: non-finite PPO loss")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    state = ppo.learn(state, iterations * n_steps * num_envs, callback=callback)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"gae": gae.gae.launches, "assemble_rows": disc_assembly.assemble_fields.launches}
-    per_round = [round_ends[0] - t0] + [b - a for a, b in zip(round_ends, round_ends[1:])]
-    log("gail", f"{rounds} rounds in {elapsed:.3f} s ({', '.join(f'{s:.3f}' for s in per_round)} s "
-                f"per round; {trainer.gen_train_timesteps} env steps each); launches {launches}")
-    for row in capture.rows[-rounds:]:
-        log("gail", "round: " + ", ".join(
-            f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
-                "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/relabeled_rew_mean",
-                "mean/disc/disc_loss", "mean/disc/disc_acc")))
-        bad = [k for k in ("mean/gen/loss", "mean/gen/value_loss", "mean/disc/disc_loss")
-               if not math.isfinite(row[k])]
-        if bad:
-            raise AssertionError(f"non-finite losses: {bad}")
-    params = list(trainer.policy.parameters()) + list(trainer.reward_net.parameters())
-    if not all(bool(torch.isfinite(p).all()) for p in params):
-        raise AssertionError("non-finite parameters after training")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
-    want = {"gae": rounds, "assemble_rows": rounds * trainer.n_disc_updates_per_round}
-    if launches != want:  # GAE once per round, B2 once per disc step
-        raise AssertionError(f"launches {launches}, expected {want}")
-
-    # The reward net's GPU forward against its CPU forward on the replay rows.
-    data = trainer._gen_buffer_state.data
-    rows = slice(0, 4096)
-    cpu_net = type(trainer.reward_net)(venv.observation_space, venv.action_space)
-    cpu_net.load_state_dict({k: v.cpu() for k, v in trainer.reward_net.state_dict().items()})
-    with torch.no_grad():
-        got = trainer.reward_net(data.obs[rows], data.acts[rows], data.next_obs[rows], data.dones[rows])
-        want = cpu_net(*(x[rows].cpu() for x in (data.obs, data.acts, data.next_obs, data.dones)))
-    err = (got.cpu() - want).abs().max().item()
-    log("reference", f"reward net GPU vs CPU forward on 4096 replay rows: max abs diff {err:.3g}")
-    if err > 1e-4:
-        raise AssertionError("GPU reward forward disagrees with the CPU one")
-    profile_round(torch, trainer, elapsed / rounds)
-    return launches, elapsed / rounds
+    launches = counts()
+    per_call = cfg.n_epochs * cfg.n_minibatches
+    want_lr = [cfg.learning_rate * (1 - (k + 2) * per_call / (cfg.total_updates_hint * per_call))
+               for k in range(iterations)]
+    log("rl", f"PPO.learn: {iterations} iterations in {elapsed:.3f} s; launches {launches}; "
+              f"learning rates {lrs} (linear to 0 over {cfg.total_updates_hint} iterations: {want_lr})")
+    if launches["gae"] != iterations:
+        raise AssertionError(f"rl: {launches['gae']} GAE launches for {iterations} iterations")
+    if any(abs(a - b) > 1e-9 for a, b in zip(lrs, want_lr)) or len(lrs) != iterations:
+        raise AssertionError(f"rl: learning rates {lrs}, expected {want_lr}")
+    return {"rl": launches}
 
 
-PHASES = ("ppo.collect", "ppo.process_chunk", "gail.buffer_store", "gail.disc_step",
-          "gail.metrics_to_host")
-
-
-def profile_round(torch, trainer, s_per_round):
-    """One more GAIL round under torch.profiler. Splits it by the port's own
-    ``record_function`` ranges (``PHASES``): host time of each, and the
-    device time of the kernels that ran inside each range's device span.
-    Busy share is kernel time over an unprofiled round (``s_per_round``),
-    since the profiler slows the host loop down."""
+def profile_round(torch, phase, trainer, s_per_round):
+    """One more round under torch.profiler. Splits it by the port's own
+    ``record_function`` ranges, named for the algorithm (``gail.disc_step``,
+    ``airl.disc_step``, ...): host time of each, and the device time of the
+    kernels that ran inside each range's device span. Busy share is kernel
+    time over an unprofiled round (``s_per_round``), since the profiler slows
+    the host loop down."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    phases = ("ppo.collect", "ppo.process_chunk", f"{phase}.buffer_store", f"{phase}.disc_step",
+              f"{phase}.metrics_to_host")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train(trainer.gen_train_timesteps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    host, spans, kernels = {p: 0.0 for p in PHASES}, [], []
+    host, spans, kernels = {p: 0.0 for p in phases}, [], []
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in PHASES:
+        if e.device_type == DeviceType.CPU and e.name in phases:
             host[e.name] += e.time_range.elapsed_us()
         elif e.device_type == DeviceType.CUDA and getattr(e, "is_user_annotation", False):
-            if e.name in PHASES:
+            if e.name in phases:
                 spans.append((e.time_range.start, e.time_range.end, e.name))
         elif e.device_type == DeviceType.CUDA:
             kernels.append((e.time_range.start, e.time_range.elapsed_us()))
-    dev = {p: 0.0 for p in PHASES}
+    dev = {p: 0.0 for p in phases}
     for start, us in kernels:
         for lo, hi, name in spans:
             if lo <= start < hi:
                 dev[name] += us
                 break
-    log("profile", "one round by phase (host ms / kernel ms): " + ", ".join(
+    log("profile", f"one {phase} round by phase (host ms / kernel ms): " + ", ".join(
         f"{p} {host[p] / 1e3:.1f} / " + (f"{dev[p] / 1e3:.2f}" if spans else "not measured")
-        for p in PHASES))
+        for p in phases))
     per_name = kernel_times(prof)
     busy = sum(t for _, t in per_name.values()) / 1e6
     n = sum(c for c, _ in per_name.values())
-    log("profile", f"kernel time {busy:.4f} s, {n} kernels = {100 * busy / s_per_round:.1f}% of an "
-                   f"unprofiled round ({s_per_round:.3f} s); the profiled round took {wall:.3f} s "
-                   f"({wall / s_per_round:.2f}x)")
+    log("profile", f"{phase}: kernel time {busy:.4f} s, {n} kernels = {100 * busy / s_per_round:.1f}% "
+                   f"of an unprofiled round ({s_per_round:.3f} s); the profiled round took "
+                   f"{wall:.3f} s ({wall / s_per_round:.2f}x)")
     for name, (count, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log("profile", f"  {us / 1e3:9.3f} ms  x{count:<6} {name[:90]}")
 
@@ -450,7 +732,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.load()
-    log("build", f"nvcc + load {time.perf_counter() - t0:.2f} s -> {kernels.library_path().name}")
+    log("build", f"nvcc ({len(kernels.SOURCES)} sources in parallel, then link) + load "
+                 f"{time.perf_counter() - t0:.2f} s -> {kernels.library_path().name}")
 
     t0 = time.perf_counter()
     entries = check_kernels(torch, dev)
@@ -461,11 +744,28 @@ def main() -> int:
     log("reference", f"done in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    launches, s_per_round = run_gail(torch, dev)
-    log("gail", f"done in {time.perf_counter() - t0:.2f} s; {s_per_round:.3f} s per round")
+    run_envs(torch, dev)
+    log("envs", f"done in {time.perf_counter() - t0:.2f} s")
 
-    for e in entries:
-        e["launches"] = launches[e["name"]]
+    paths = {}
+    t0 = time.perf_counter()
+    launches, s_gail = run_gail(torch, dev)
+    paths.update(launches)
+    log("gail", f"done in {time.perf_counter() - t0:.2f} s; {s_gail:.3f} s per round")
+
+    t0 = time.perf_counter()
+    launches, s_airl, s_fused = run_airl(torch, dev)
+    paths.update(launches)
+    log("airl", f"done in {time.perf_counter() - t0:.2f} s; {s_airl:.3f} s per round (train), "
+                f"{s_fused:.3f} s per round (train_fused)")
+
+    t0 = time.perf_counter()
+    paths.update(run_rl(torch, dev))
+    log("rl", f"done in {time.perf_counter() - t0:.2f} s")
+
+    for e in entries:  # the launches of every driven path, each counted from 0
+        e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}
+        e["launches"] = sum(e["paths"].values())
     print(json.dumps({"kernels": entries}), flush=True)
     log("total", f"{time.perf_counter() - t_all:.2f} s")
     print(nvidia_smi(), flush=True)

@@ -15,11 +15,17 @@ Each discriminator step builds its ``[expert; gen]`` batch with the
 hand-written CUDA kernel B2 (``ops.disc_assembly.assemble_fields``), one
 launch for all four fields, gathering straight from the demo store and the
 replay ring. Parameters are updated in place; metrics stay on the device until
-``train`` reads them once per round.
+``train`` reads them once per round, or ``train_fused`` once per
+``rounds_per_sync`` rounds.
 
-Subclass contract (GAIL): ``logits_expert_is_high`` maps reward-net outputs
-to discriminator logits where high means "expert"; ``reward_train_fn``
-gives the reward the generator trains on.
+Subclass contract (GAIL, AIRL): ``logits_expert_is_high`` maps reward-net
+outputs (and, where ``needs_policy_log_prob``, log pi(a|s)) to discriminator
+logits where high means "expert"; ``reward_train_fn`` gives the reward the
+generator trains on and ``reward_test_fn`` the reward for transfer
+evaluation.
+
+The ``record_function`` ranges of a round are named for the algorithm:
+``gail.disc_step``, ``airl.disc_step`` and so on.
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ import abc
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -109,15 +114,6 @@ def _disc_indices(
         0, n_demo, (batch_size,), generator=generator, device=generator.device, dtype=torch.int32
     )
     return e_idx, buffer.sample_indices(buffer_state, batch_size, generator)
-
-
-def metrics_to_host(metrics: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Copies a dict of same-shaped device tensors to numpy in one transfer."""
-    if not metrics:
-        return {}
-    keys = list(metrics)
-    stacked = torch.stack([metrics[k].detach().float() for k in keys]).cpu().numpy()
-    return dict(zip(keys, stacked))
 
 
 @dataclasses.dataclass
@@ -201,6 +197,7 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         )
         self.gen_state: Optional[rl_common.RLState] = None
         self._global_step = 0
+        self._range = type(self).__name__.lower()  # "gail", "airl": profiler range prefix
 
     # -- demonstration handling -------------------------------------------
     def set_demonstrations(self, demonstrations: base.AnyDemonstrations) -> None:
@@ -231,6 +228,15 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
     def reward_train_fn(self) -> rl_common.RelabelRewardFn:
         """Reward used to train the generator."""
 
+    def reward_test_fn(self) -> rl_common.RelabelRewardFn:
+        """Reward for transfer evaluation; defaults to the train reward."""
+        return self.reward_train_fn()
+
+    @property
+    def needs_policy_log_prob(self) -> bool:
+        """AIRL needs log pi(a|s) inside the disc logit; GAIL does not."""
+        return False
+
     def _reward_train_relabel_fn(self, reward_params, obs, acts, next_obs, dones):
         return self.reward_train_fn()(reward_params, obs, acts, next_obs, dones)
 
@@ -247,7 +253,10 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         When ``demo_minibatch_size < demo_batch_size``, gradients accumulate
         over ``[expert_mb; gen_mb]`` slices with the loss scaled by
         ``mb / demo_batch_size``, and one optimizer step is taken at the end.
-        ``policy`` is unused by GAIL (AIRL reads log pi(a|s) from it).
+        Where ``needs_policy_log_prob`` (AIRL), log pi(a|s) under ``policy``
+        is computed once on the whole ``[2B]`` batch, with no gradient and
+        without folding the policy's normalizer stats, and split into
+        minibatches like the other fields.
         """
         B = self.demo_batch_size
         mb = self.demo_minibatch_size
@@ -262,8 +271,19 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             e_idx, g_idx,
         )
 
+        log_prob = None
+        if self.needs_policy_log_prob:
+            with torch.no_grad():
+                dist, _ = policy.dist_and_value(obs)
+                if policy.action_space.is_discrete:
+                    log_prob = dist.log_prob(acts)
+                else:
+                    log_prob = dist.log_prob(acts.reshape(acts.shape[0], -1))
+
         def to_mb(x):
             # [2B, ...] with expert rows first -> [k, 2*mb, ...]
+            if x is None:
+                return [None] * k
             if k == 1:
                 return x[None]
             e = x[:B].reshape((k, mb) + tuple(x.shape[1:]))
@@ -277,8 +297,10 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         optimizer = disc_state.optimizer
         optimizer.zero_grad()
         losses, logits_k = [], []
-        for o, a, no, d in zip(to_mb(obs), to_mb(acts), to_mb(next_obs), to_mb(dones)):
-            logits = self.logits_expert_is_high(net, o, a, no, d)
+        for o, a, no, d, lp in zip(
+            to_mb(obs), to_mb(acts), to_mb(next_obs), to_mb(dones), to_mb(log_prob)
+        ):
+            logits = self.logits_expert_is_high(net, o, a, no, d, lp)
             # Scaled so the k accumulated grads sum to the full-batch mean.
             loss = sigmoid_binary_cross_entropy(logits, labels_mb).mean() * (mb / B)
             loss.backward()
@@ -290,7 +312,8 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         optimizer.step()
         stats = compute_train_stats(logits, labels, loss)
         if any(isinstance(m, RunningNorm) for m in net.modules()):
-            # Fold this batch into the input normalizer's running stats.
+            # Fold this batch into the input normalizer's running stats
+            # (a shaped net's normalizer sits in its base).
             with torch.no_grad():
                 net(obs, acts, next_obs, dones, update_stats=True)
         return dataclasses.replace(disc_state, step=disc_state.step + 1), stats
@@ -299,14 +322,14 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         """One discriminator update using the current buffers."""
         if self._gen_buffer_state is None:
             raise RuntimeError("No generator samples for training. Call `train_gen()` first.")
-        with record_function("gail.disc_step"):
+        with record_function(f"{self._range}.disc_step"):
             self.disc_state, stats = self._disc_step(
                 self.disc_state, self._gen_buffer_state, self._current_policy(),
                 self._demo_store.batch,
             )
         if not sync:
             return stats
-        return {k: float(v) for k, v in metrics_to_host(stats).items()}
+        return {k: float(v) for k, v in rl_common.metrics_to_host(stats).items()}
 
     def train_disc_rounds(self, n: Optional[int] = None, sync: bool = True):
         """Runs ``n`` (default ``n_disc_updates_per_round``) disc updates;
@@ -317,18 +340,28 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         policy = self._current_policy()
         all_stats = []
         for _ in range(n):
-            with record_function("gail.disc_step"):
+            with record_function(f"{self._range}.disc_step"):
                 self.disc_state, stats = self._disc_step(
                     self.disc_state, self._gen_buffer_state, policy, self._demo_store.batch
                 )
             all_stats.append(stats)
         stacked = {k: torch.stack([s[k] for s in all_stats]) for k in all_stats[0]}
-        return stacked if not sync else metrics_to_host(stacked)
+        return stacked if not sync else rl_common.metrics_to_host(stacked)
 
     def _current_policy(self) -> ActorCriticPolicy:
         if self.gen_state is None:
             self.gen_state = self.gen_algo.init_state()
         return self.policy
+
+    # -- generator warm start ----------------------------------------------
+    def warm_start_generator(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Loads pre-trained policy weights (a policy ``state_dict``, e.g. from
+        ``convert.policy_state_dict``) into the generator before training.
+        The optimizer's moments are kept, as the JAX package keeps its
+        ``opt_state``."""
+        if self.gen_state is None:
+            self.gen_state = self.gen_algo.init_state()
+        self.policy.load_state_dict(state_dict)
 
     # -- generator step ----------------------------------------------------
     def train_gen(self, total_timesteps: Optional[int] = None, sync: bool = True) -> Mapping[str, Any]:
@@ -343,7 +376,7 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             self.gen_state, metrics, chunk = self.gen_algo.train_step(
                 self.gen_state, self.reward_net
             )
-            with record_function("gail.buffer_store"):
+            with record_function(f"{self._range}.buffer_store"):
                 transitions = chunk_to_transitions(chunk)
                 if self._gen_buffer_state is None:
                     self._gen_buffer_state = self._gen_replay_buffer.init_state(transitions)
@@ -352,7 +385,67 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
                 )
         if not sync:
             return metrics
-        return {k: float(v) for k, v in metrics_to_host(metrics).items()}
+        return {k: float(v) for k, v in rl_common.metrics_to_host(metrics).items()}
+
+    # -- multi-round loop --------------------------------------------------
+    def _example_transitions(self) -> types.TransitionBatch:
+        """One all-zero row shaped like the env's transitions (sizes the ring)."""
+        obs_space, act_space = self.venv.observation_space, self.venv.action_space
+        dev = self.device
+        obs = torch.zeros((1,) + tuple(obs_space.shape), device=dev)
+        if act_space.is_discrete:
+            acts = torch.zeros((1,), dtype=torch.int32, device=dev)
+        else:
+            acts = torch.zeros((1,) + tuple(act_space.shape), device=dev)
+        zero = torch.zeros((1,), device=dev)
+        return types.TransitionBatch(obs=obs, acts=acts, next_obs=obs, dones=zero, rews=zero)
+
+    def _round_step(self) -> Dict[str, torch.Tensor]:
+        """One adversarial round: ONE generator train step (whatever
+        ``gen_train_timesteps`` is, as in the JAX package's fused round), the
+        replay store and ``n_disc_updates_per_round`` disc steps. Returns the
+        round's metrics on the device: ``gen/*``, and ``disc/*`` averaged over
+        the disc steps."""
+        gen_metrics = self.train_gen(self._gen_steps_per_iter, sync=False)
+        disc_stats = self.train_disc_rounds(sync=False)
+        metrics = {f"gen/{k}": v for k, v in gen_metrics.items()}
+        metrics.update({f"disc/{k}": v.mean() for k, v in disc_stats.items()})
+        return metrics
+
+    def train_fused(self, total_timesteps: int, rounds_per_sync: int = 8) -> None:
+        """Runs ``rounds_per_sync`` rounds between host reads of the metrics.
+
+        The JAX package runs those rounds as one traced ``lax.scan``; here
+        they run eagerly, with no host read until the last of them. The
+        metrics of each sync are averaged over its rounds and logged as
+        ``mean/gen/*`` and ``mean/disc/*``. The replay ring is sized from
+        ``_example_transitions`` before the first round. ``ReplayBuffer.store``
+        writes the ring in place, which is harmless here: only the newest
+        buffer state is kept.
+        """
+        n_rounds = total_timesteps // self.gen_train_timesteps
+        if n_rounds < 1:
+            raise ValueError(
+                f"No updates (need at least {self.gen_train_timesteps} timesteps, "
+                f"have only total_timesteps={total_timesteps})!"
+            )
+        if self.gen_state is None:
+            self.gen_state = self.gen_algo.init_state()
+        if self._gen_buffer_state is None:
+            self._gen_buffer_state = self._gen_replay_buffer.init_state(self._example_transitions())
+        done_rounds = 0
+        while done_rounds < n_rounds:
+            k = min(rounds_per_sync, n_rounds - done_rounds)
+            rounds = [self._round_step() for _ in range(k)]
+            with record_function(f"{self._range}.metrics_to_host"):  # the sync's one read
+                host = rl_common.metrics_to_host(
+                    {key: torch.stack([m[key] for m in rounds]).mean() for key in rounds[0]}
+                )
+            for key, v in host.items():
+                self.logger.record(f"mean/{key}", float(v))
+            done_rounds += k
+            self._global_step += k
+            self.logger.dump(self._global_step)
 
     # -- outer loop --------------------------------------------------------
     def train(self, total_timesteps: int, callback: Optional[Callable[[int], None]] = None) -> None:
@@ -366,9 +459,9 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         for r in range(n_rounds):
             gen_metrics = self.train_gen(self.gen_train_timesteps, sync=False)
             disc_stats = self.train_disc_rounds(sync=False)
-            with record_function("gail.metrics_to_host"):  # the round's one sync
-                gen_metrics = metrics_to_host(gen_metrics)
-                disc_stats = metrics_to_host(disc_stats)
+            with record_function(f"{self._range}.metrics_to_host"):  # the round's one sync
+                gen_metrics = rl_common.metrics_to_host(gen_metrics)
+                disc_stats = rl_common.metrics_to_host(disc_stats)
             with self.logger.accumulate_means("gen"):
                 for k, v in gen_metrics.items():
                     self.logger.record(k, float(v))

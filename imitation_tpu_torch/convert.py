@@ -43,5 +43,10 @@ def policy_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def reward_net_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``BasicRewardNet`` variables -> ``imitation_tpu_torch`` reward-net state_dict."""
+    """Reward-net variables -> ``imitation_tpu_torch`` reward-net state_dict.
+
+    ``BasicRewardNet`` keys are ``mlp.*`` and ``input_norm.*``; a shaped net
+    (``BasicShapedRewardNet``) nests them as ``base.*`` and its potential as
+    ``potential.mlp.*``, the flax submodule names.
+    """
     return flax_to_state_dict(variables)

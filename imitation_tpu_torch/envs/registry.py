@@ -1,7 +1,8 @@
 """Environment registry: name -> batched on-device Env factory.
 
-Port of ``imitation_tpu/envs/registry.py`` for the device envs of this slice
-(CartPole). Host (MuJoCo, gym-bridge) envs are not ported yet.
+Port of ``imitation_tpu/envs/registry.py`` for the device envs: the
+classic-control names and their seals fixed-horizon variants. Host (MuJoCo,
+gym-bridge) envs are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,4 +57,10 @@ def _with_horizon(env: Env, horizon: int) -> Env:
 
 register("CartPole-v0", lambda **kw: _with_horizon(classic.CartPole(**kw), 200))
 register("CartPole-v1", classic.CartPole)
+register("Pendulum-v1", classic.Pendulum)
+register("MountainCar-v0", classic.MountainCar)
+register("MountainCarContinuous-v0", classic.MountainCarContinuous)
+register("Acrobot-v1", classic.Acrobot)
 register("seals/CartPole-v0", lambda **kw: classic.CartPole(fixed_horizon=True, **kw))
+register("seals/MountainCar-v0", lambda **kw: classic.MountainCar(fixed_horizon=True, **kw))
+register("seals/Pendulum-v0", classic.Pendulum)  # Pendulum is already fixed-horizon

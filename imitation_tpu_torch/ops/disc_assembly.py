@@ -8,21 +8,23 @@ written in one pass with no intermediate expert/gen tensors.
 arrays (a disc step's obs, acts, next_obs and dones) in ONE launch of the
 CUDA kernel (``csrc/disc_assembly.cu``) for CUDA tensors, and takes
 ``assemble_rows_plain`` field by field for CPU tensors. ``assemble_rows`` is
-the one-field form of the same call. An index is read as JAX's ``x[idx]``
-reads it: a negative one counts from the end, then it is clamped to
-``[0, rows - 1]``.
+the one-field form of the same call. A field may have any dtype and any rank
+>= 1, as JAX's ``assemble_rows`` takes it (demo and gen of one dtype and one
+row shape); the kernel moves each row as bytes, so every field of a CUDA
+disc step goes through it. An index is read as JAX's ``x[idx]`` reads it: a
+negative one counts from the end, then it is clamped to ``[0, rows - 1]``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
 
 from imitation_tpu_torch.ops import kernels
 
-_WORD_DTYPES = (torch.float32, torch.int32)
 MAX_FIELDS = 8  # kMaxFields in csrc/disc_assembly.cu
 
 
@@ -50,12 +52,13 @@ def _check(fields: Sequence[Tuple[torch.Tensor, torch.Tensor]], e_idx, g_idx) ->
             raise TypeError(f"indices must be [B] int32, got {idx.dtype} {tuple(idx.shape)}")
     if e_idx.shape != g_idx.shape:
         raise ValueError("e_idx and g_idx must have one length")
+    for demo, gen in fields:
+        if gen.dtype != demo.dtype:
+            raise TypeError(f"demo and gen of a field must share a dtype, got {demo.dtype}, {gen.dtype}")
+        if demo.dim() < 1 or gen.shape[1:] != demo.shape[1:]:
+            raise ValueError(f"bad field shapes {tuple(demo.shape)}, {tuple(gen.shape)}")
     n_demo, n_gen = fields[0][0].shape[0], fields[0][1].shape[0]
     for demo, gen in fields:
-        if demo.dtype not in _WORD_DTYPES or gen.dtype != demo.dtype:
-            raise TypeError(f"assembly takes float32 or int32 fields, got {demo.dtype}, {gen.dtype}")
-        if demo.dim() not in (1, 2) or gen.shape[1:] != demo.shape[1:]:
-            raise ValueError(f"bad field shapes {tuple(demo.shape)}, {tuple(gen.shape)}")
         if demo.shape[0] == 0 or gen.shape[0] == 0:
             raise ValueError("assembly needs at least one demo and one gen row")
         if demo.shape[0] != n_demo or gen.shape[0] != n_gen:
@@ -68,12 +71,12 @@ def _check(fields: Sequence[Tuple[torch.Tensor, torch.Tensor]], e_idx, g_idx) ->
 
 
 def assemble_fields(
-    fields: Sequence[Tuple[torch.Tensor, torch.Tensor]],  # (demo [N] or [N, F], gen [C] or [C, F])
+    fields: Sequence[Tuple[torch.Tensor, torch.Tensor]],  # (demo [N, ...], gen [C, ...])
     e_idx: torch.Tensor,  # [B] int32
     g_idx: torch.Tensor,  # [B] int32
 ) -> Tuple[torch.Tensor, ...]:
-    """For each ``(demo, gen)`` field, ``[2B]`` or ``[2B, F]``: demo rows at
-    e_idx, then gen rows at g_idx. One kernel launch for all fields."""
+    """For each ``(demo, gen)`` field, ``[2B, ...]``: demo rows at e_idx, then
+    gen rows at g_idx. One kernel launch for all fields."""
     fields = [tuple(f) for f in fields]
     _check(fields, e_idx, g_idx)
     dev = e_idx.device
@@ -95,7 +98,7 @@ def assemble_fields(
         ptrs(*(demo.data_ptr() for demo, _ in fields)),
         ptrs(*(gen.data_ptr() for _, gen in fields)),
         ptrs(*(out.data_ptr() for out in outs)),
-        (ctypes.c_int * n)(*(demo.shape[1] if demo.dim() == 2 else 1 for demo, _ in fields)),
+        (ctypes.c_int * n)(*(math.prod(demo.shape[1:]) * demo.element_size() for demo, _ in fields)),
         n, e_idx.data_ptr(), g_idx.data_ptr(), fields[0][0].shape[0], fields[0][1].shape[0], B,
         kernels.stream(dev),
     ))
@@ -107,10 +110,10 @@ assemble_fields.launches = 0
 
 
 def assemble_rows(
-    demo: torch.Tensor,  # [N] or [N, F], float32 or int32
-    gen: torch.Tensor,  # [C] or [C, F], same dtype and row shape
+    demo: torch.Tensor,  # [N, ...], any dtype
+    gen: torch.Tensor,  # [C, ...], same dtype and row shape
     e_idx: torch.Tensor,  # [B] int32
     g_idx: torch.Tensor,  # [B] int32
 ) -> torch.Tensor:
-    """Returns ``[2B]`` or ``[2B, F]``: demo rows at e_idx, then gen rows at g_idx."""
+    """Returns ``[2B, ...]``: demo rows at e_idx, then gen rows at g_idx."""
     return assemble_fields([(demo, gen)], e_idx, g_idx)[0]

@@ -56,15 +56,19 @@ def gae(
     rews: torch.Tensor,  # [T, B]
     values: torch.Tensor,  # [T, B]   V(obs_t)
     next_values: torch.Tensor,  # [T, B]   V(next_obs_t)
-    terminated: torch.Tensor,  # [T, B]   true terminal (no bootstrap), float32
-    dones: torch.Tensor,  # [T, B]   terminated | truncated, float32
+    terminated: torch.Tensor,  # [T, B]   true terminal (no bootstrap)
+    dones: torch.Tensor,  # [T, B]   terminated | truncated
     gamma: float,
     lam: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (advantages, returns = advantages + values), both [T, B] float32.
 
-    All five panels must be contiguous float32 ``[T, B]`` on one device.
+    ``rews``, ``values`` and ``next_values`` must be float32; the two flag
+    panels (bool, integer or float) are cast to float32 first, as the JAX
+    ``gae`` casts them to the dtype of ``rews``. All five panels must be
+    contiguous ``[T, B]`` on one device.
     """
+    terminated, dones = terminated.to(torch.float32), dones.to(torch.float32)
     panels = (rews, values, next_values, terminated, dones)
     for p in panels:
         if p.dtype != torch.float32:

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels into one shared library and loads it.
 
-All ``csrc/*.cu`` sources go through ONE ``nvcc`` call for ``sm_90a`` into a
-plain-C shared library (no PyTorch headers, so it builds in seconds), which
-is loaded with ``ctypes``. The build runs at first use, never at import, and
+Each ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one plain-C
+shared library (no PyTorch headers, so it builds in seconds), which is
+loaded with ``ctypes``. The build runs at first use, never at import, and
 lands in ``imitation_tpu_torch/_build/`` (git-ignored) under a name that
 hashes the sources and flags, so it is rebuilt only when they change.
 
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("gae.cu", "disc_assembly.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -52,19 +53,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libitt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Runs the commands as parallel processes; raises if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}{err}"
+            )
+
+
 def build() -> Path:
     """Compiles the library unless a build of these sources exists; returns its path."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = find_nvcc()
+    stem = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{Path(src).stem}.o" for src in SOURCES]
+    tmp = path.with_name(f"{stem}.tmp.so")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                  for src, obj in zip(SOURCES, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)  # atomic: a concurrent build of the same sources is harmless
     return path
 

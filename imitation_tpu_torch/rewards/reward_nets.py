@@ -1,10 +1,11 @@
 """Reward networks.
 
-Port of the part of ``imitation_tpu/rewards/reward_nets.py`` this slice
-runs: the ``RewardNet`` base (preprocessing, ``predict_processed``) and
-``BasicRewardNet``. A reward net maps ``(obs, acts, next_obs, dones)`` to
-rewards ``[B]``; ``predict_processed`` is the inference path (the raw
-forward, for the nets here).
+Port of the part of ``imitation_tpu/rewards/reward_nets.py`` that GAIL and
+AIRL run: the ``RewardNet`` base (preprocessing, ``predict_processed``),
+``BasicRewardNet``, and the potential-shaped nets (``BasicPotentialMLP``,
+``ShapedRewardNet``, ``BasicShapedRewardNet``). A reward net maps ``(obs,
+acts, next_obs, dones)`` to rewards ``[B]``; ``predict_processed`` is the
+inference path (the raw forward, for the nets here).
 
 Preprocessing matches SB3's ``preprocess_obs`` as the JAX package does it:
 discrete spaces one-hot, continuous spaces flattened to float32, integer
@@ -110,3 +111,68 @@ class BasicRewardNet(RewardNet):
         if self.input_norm is not None:
             x = self.input_norm(x, update_stats=update_stats)
         return self.mlp(x)
+
+
+class BasicPotentialMLP(nn.Module):
+    """State-only potential function phi(s): a (32, 32) relu MLP."""
+
+    def __init__(self, observation_space: Space, hid_sizes: Sequence[int] = (32, 32)):
+        super().__init__()
+        self.observation_space = observation_space
+        self.mlp = networks.MLP(
+            observation_space.flat_dim, hid_sizes, out_size=1, squeeze_output=True
+        )
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "BasicPotentialMLP":
+        self.mlp.reset_parameters(generator)
+        return self
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.mlp(preprocess_space(self.observation_space, obs))
+
+
+class ShapedRewardNet(RewardNet):
+    """Potential shaping: r'(s,a,s') = r(s,a,s') + gamma*phi(s')*(1-done) - phi(s).
+
+    The ``(1-done)`` factor zeroes the terminal new-state potential, so the
+    shaping leaves optimal policies unchanged at episode ends. ``update_stats``
+    reaches only the base (the potential has no normalizer).
+    """
+
+    def __init__(self, base: RewardNet, potential: nn.Module, discount_factor: float = 0.99):
+        super().__init__(base.observation_space, base.action_space)
+        self.base = base
+        self.potential = potential
+        self.discount_factor = discount_factor
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "ShapedRewardNet":
+        self.base.init(generator)
+        self.potential.init(generator)
+        return self
+
+    def forward(self, obs, acts, next_obs, dones, update_stats: bool = False):
+        base_out = self.base(obs, acts, next_obs, dones, update_stats=update_stats)
+        new_pot = self.potential(next_obs)
+        old_pot = self.potential(obs)
+        d = dones.float()
+        return base_out + self.discount_factor * (1.0 - d) * new_pot - old_pot
+
+    def base_forward(self, obs, acts, next_obs, dones):
+        """The unshaped base reward (AIRL's transferable ``reward_test``)."""
+        return self.base(obs, acts, next_obs, dones)
+
+
+def BasicShapedRewardNet(
+    observation_space: Space,
+    action_space: Space,
+    *,
+    reward_hid_sizes: Sequence[int] = (32,),
+    potential_hid_sizes: Sequence[int] = (32, 32),
+    discount_factor: float = 0.99,
+    **kwargs,
+) -> ShapedRewardNet:
+    """An MLP reward (``BasicRewardNet`` over ``(s, a)``, hid ``reward_hid_sizes``;
+    ``kwargs`` go to it) shaped by an MLP potential (hid ``potential_hid_sizes``)."""
+    base = BasicRewardNet(observation_space, action_space, hid_sizes=reward_hid_sizes, **kwargs)
+    potential = BasicPotentialMLP(observation_space, hid_sizes=potential_hid_sizes)
+    return ShapedRewardNet(base, potential, discount_factor=discount_factor)

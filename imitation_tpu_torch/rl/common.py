@@ -8,13 +8,15 @@ module and optimizer objects and the host-side counters.
 ``make_optimizer`` reproduces the JAX package's optax chain exactly:
 ``clip_by_global_norm(max_norm)`` (scale by ``max_norm/||g||`` only when
 ``||g|| >= max_norm``, with no epsilon) followed by ``adam``, with optax's
-order of operations, so parity with the JAX learners is tight.
+order of operations, so parity with the JAX learners is tight. Its learning
+rate is a constant or a schedule of the update count (``linear_schedule``,
+``optax.linear_schedule``'s values).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -59,26 +61,54 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+# A learning-rate schedule: the rate of an update, from the number of
+# updates before it (optax's ``count``, 0 for the first).
+Schedule = Callable[[int], float]
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:
+    """``optax.linear_schedule``: ``init_value`` at count 0, falling linearly
+    to ``end_value`` at ``transition_steps`` and staying there, computed in
+    float32 as optax computes it."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        if transition_steps <= 0:
+            return float(f32(init_value))
+        frac = f32(1) - f32(min(max(count, 0), transition_steps)) / f32(transition_steps)
+        return float(f32(init_value - end_value) * frac + f32(end_value))
+
+    return schedule
+
+
 class Adam(torch.optim.Optimizer):
     """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, b1, b2, eps))``.
 
-    ``step()`` reads ``p.grad`` of every parameter, applies the update in
-    place and returns the global norm of the gradients before clipping. It
-    never waits for the device.
+    ``lr`` is a float or a ``Schedule``. ``step()`` reads ``p.grad`` of every
+    parameter, applies the update in place and returns the global norm of
+    the gradients before clipping. It never waits for the device.
     """
 
     def __init__(
         self,
         params: Iterable[torch.nn.Parameter],
-        lr: float,
+        lr: Union[float, Schedule],
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
         max_grad_norm: Optional[float] = None,
     ):
-        super().__init__(list(params), dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        self.schedule = lr if callable(lr) else None
+        super().__init__(list(params), dict(lr=0.0 if callable(lr) else lr, b1=b1, b2=b2, eps=eps))
         self.max_grad_norm = max_grad_norm
         self.count = 0
+
+    @property
+    def learning_rate(self) -> float:
+        """The rate the next ``step()`` applies."""
+        if self.schedule is not None:
+            return self.schedule(self.count)
+        return self.param_groups[0]["lr"]
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -91,6 +121,7 @@ class Adam(torch.optim.Optimizer):
         if self.max_grad_norm is not None:
             trigger = norm < self.max_grad_norm
             grads = [torch.where(trigger, g, (g / norm) * self.max_grad_norm) for g in grads]
+        lr = self.learning_rate
         self.count += 1
         b1, b2 = group["b1"], group["b2"]
         # optax computes the bias corrections 1 - b**count in float32.
@@ -113,20 +144,29 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_add_(denom, group["eps"])
         upd = torch._foreach_div(mus, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, -group["lr"])
+        torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
         return norm
 
 
 def make_optimizer(
     params: Iterable[torch.nn.Parameter],
-    learning_rate: float,
+    learning_rate: Union[float, Schedule],
     max_grad_norm: Optional[float] = None,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
 ) -> Adam:
     return Adam(params, learning_rate, b1=b1, b2=b2, eps=eps, max_grad_norm=max_grad_norm)
+
+
+def metrics_to_host(metrics: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Copies a dict of same-shaped device tensors to numpy in one transfer."""
+    if not metrics:
+        return {}
+    keys = list(metrics)
+    stacked = torch.stack([metrics[k].detach().float() for k in keys]).cpu().numpy()
+    return dict(zip(keys, stacked))
 
 
 def explained_variance(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:

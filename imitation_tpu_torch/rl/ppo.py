@@ -12,15 +12,18 @@ the env's device:
 
 The JAX package traces all of this into one XLA program; here it runs as
 eager launches, and the policy's parameters are updated in place. Metrics
-stay on the device until the caller reads them. The learning rate is
-constant (the ``linear`` schedule, host envs and overlapped collection are
-not ported yet).
+stay on the device until the caller reads them. ``learn`` is the host loop
+of train steps with logging. The learning rate is constant or falls
+linearly to 0 over ``total_updates_hint`` train steps (``lr_schedule``).
+Host envs are not ported yet, so ``overlap_collection``, which pipelines
+host collection, is refused when set rather than ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.profiler import record_function
@@ -37,6 +40,8 @@ from imitation_tpu_torch.rl import common
 class PPOConfig:
     n_steps: int = 2048  # rollout length per env per iteration
     learning_rate: float = 3e-4
+    lr_schedule: str = "constant"  # "constant" | "linear" (decay to 0)
+    total_updates_hint: int = 1000  # schedule horizon in train_step calls
     n_epochs: int = 10
     n_minibatches: int = 32
     gamma: float = 0.99
@@ -53,6 +58,9 @@ class PPOConfig:
     # and every later update of the iteration is skipped (costs one device
     # sync per minibatch while set).
     target_kl: Optional[float] = None
+    # Host envs only: collect the next chunk while the device updates. The
+    # port has no host envs yet, so ``PPO`` raises when this is set.
+    overlap_collection: bool = False
 
 
 def _epoch_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
@@ -85,6 +93,19 @@ class PPO:
         self.reward_fn = reward_fn
         self.return_transitions = return_transitions
         self._seed = seed
+        if config.overlap_collection:
+            raise NotImplementedError(
+                "overlap_collection pipelines host-env collection; host envs are not ported"
+            )
+        if config.lr_schedule == "linear":
+            updates_per_call = config.n_epochs * config.n_minibatches
+            self._lr = common.linear_schedule(
+                config.learning_rate, 0.0, config.total_updates_hint * updates_per_call
+            )
+        elif config.lr_schedule == "constant":
+            self._lr = config.learning_rate
+        else:
+            raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
         batch = config.n_steps * venv.num_envs
         if batch % config.n_minibatches != 0:
             raise ValueError(
@@ -98,7 +119,7 @@ class PPO:
         generator = generator if generator is not None else make_generator(self._seed, self.device)
         self.policy.init(generator)
         optimizer = common.make_optimizer(
-            self.policy.parameters(), self.config.learning_rate, self.config.max_grad_norm
+            self.policy.parameters(), self._lr, self.config.max_grad_norm
         )
         env_state = self.venv.reset(generator)
         reward_norm = None
@@ -293,3 +314,30 @@ class PPO:
         if self.return_transitions:
             return new_state, metrics, chunk.replace(rews=true_rews, aux={})
         return new_state, metrics
+
+    # -- host loop ---------------------------------------------------------
+    def learn(
+        self,
+        state: common.RLState,
+        total_timesteps: int,
+        reward_params: Any = None,
+        callback: Optional[Callable[[common.RLState, Dict[str, float]], None]] = None,
+        logger=None,
+        log_prefix: str = "rollout",
+    ) -> common.RLState:
+        """Runs ``ceil(total_timesteps / (n_steps * num_envs))`` train steps
+        (at least one). Metrics are read to the host only for a ``logger``
+        (recorded under ``log_prefix`` and dumped at the step count) or a
+        ``callback(state, metrics)``."""
+        steps_per_iter = self.config.n_steps * self.venv.num_envs
+        for _ in range(max(1, math.ceil(total_timesteps / steps_per_iter))):
+            state, metrics = self.train_step(state, reward_params)[:2]
+            if callback is not None or logger is not None:
+                host_metrics = {k: float(v) for k, v in common.metrics_to_host(metrics).items()}
+                if logger is not None:
+                    for k, v in host_metrics.items():
+                        logger.record(f"{log_prefix}/{k}", v)
+                    logger.dump(step=state.timesteps)
+                if callback is not None:
+                    callback(state, host_metrics)
+        return state

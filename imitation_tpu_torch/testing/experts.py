@@ -1,7 +1,7 @@
 """Scripted expert policies for testing.
 
-Port of the CartPole part of ``imitation_tpu/testing/experts.py``: a
-closed-form controller with the rollout policy interface
+Port of ``imitation_tpu/testing/experts.py``: closed-form near-optimal
+controllers for the classic-control envs, with the rollout policy interface
 ``(obs, generator) -> (acts, aux)``, so demonstrations are made on the
 device with no download.
 """
@@ -27,10 +27,39 @@ def cartpole_expert_fn(
     return (score > 0).to(torch.int32), {}
 
 
+def pendulum_expert_fn(
+    obs: torch.Tensor, generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, dict]:
+    """Energy-shaping swing-up with a PD stabilizer near the top; ``[B, 1]``
+    torques (return around -150 on Pendulum-v1)."""
+    cos_th, sin_th, thdot = obs.unbind(-1)
+    th = torch.atan2(sin_th, cos_th)
+    g, m, l = 10.0, 1.0, 1.0
+    # mechanical energy relative to the upright position
+    energy = 0.5 * m * l ** 2 * thdot ** 2 + m * g * l * (cos_th - 1.0)
+    swing_u = 2.0 * torch.sign(thdot * (-energy))
+    pd_u = -16.0 * th - 4.0 * thdot
+    near_top = th.abs() < 0.4
+    u = torch.where(near_top, pd_u, swing_u)
+    return torch.clamp(u, -2.0, 2.0)[:, None], {}
+
+
+def mountain_car_expert_fn(
+    obs: torch.Tensor, generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, dict]:
+    """Bang-bang energy pumping: accelerate along the current velocity."""
+    vel = obs[:, 1]
+    return torch.where(vel >= 0, 2, 0).to(torch.int32), {}
+
+
 EXPERTS = {
     "CartPole-v1": cartpole_expert_fn,
     "CartPole-v0": cartpole_expert_fn,
     "seals/CartPole-v0": cartpole_expert_fn,
+    "Pendulum-v1": pendulum_expert_fn,
+    "seals/Pendulum-v0": pendulum_expert_fn,
+    "MountainCar-v0": mountain_car_expert_fn,
+    "seals/MountainCar-v0": mountain_car_expert_fn,
 }
 
 

@@ -4,6 +4,11 @@ The port's ``assemble_fields`` and ``assemble_rows`` take their plain
 version for CPU tensors (the CUDA kernel B2, one launch for all fields, is
 held against that plain version on the card by ``chip_smoke.py``). A gather
 copies values, so the comparison is exact.
+
+Like JAX's ``assemble_rows``, the port takes fields of any dtype and any
+rank >= 1. JAX without x64 demotes float64 and int64 arrays to 32 bits when
+they enter it, so for those dtypes its values are compared after the same
+demotion, while the port keeps torch's input dtype.
 """
 
 import jax.numpy as jnp
@@ -80,10 +85,23 @@ def test_out_of_range_indices_read_as_jax_reads_them(F):
     )
 
 
+def _jax_equal(got: torch.Tensor, demo, gen, e_idx, g_idx) -> None:
+    """``got`` equals JAX's ``assemble_rows`` of the same numpy inputs in shape
+    and values (JAX demotes 64-bit inputs; the port keeps their dtype)."""
+    want = np.asarray(jax_assemble(*map(jnp.asarray, (demo, gen, e_idx, g_idx))))
+    assert got.shape == want.shape and got.dtype == torch.from_numpy(demo).dtype
+    np.testing.assert_array_equal(got.numpy().astype(want.dtype), want)
+
+
 def test_rejects_bad_inputs():
     demo, gen, e_idx, g_idx = map(torch.from_numpy, _case(8, 8, 4, 2, np.float32, seed=7))
+    # float64 fields assemble now, equal to JAX (they were refused before).
+    _jax_equal(disc_assembly.assemble_rows(demo.double(), gen.double(), e_idx, g_idx),
+               demo.double().numpy(), gen.double().numpy(), e_idx.numpy(), g_idx.numpy())
     with pytest.raises(TypeError):
-        disc_assembly.assemble_rows(demo.double(), gen.double(), e_idx, g_idx)
+        disc_assembly.assemble_rows(demo.double(), gen, e_idx, g_idx)  # two dtypes in a field
+    with pytest.raises(ValueError):
+        disc_assembly.assemble_rows(demo[0, 0], gen[0, 0], e_idx, g_idx)  # rank 0
     with pytest.raises(TypeError):
         disc_assembly.assemble_rows(demo, gen, e_idx.long(), g_idx)
     with pytest.raises(ValueError):
@@ -143,8 +161,11 @@ def test_fused_fields_reject_bad_inputs():
         disc_assembly.assemble_fields([(d4, g4)] * (disc_assembly.MAX_FIELDS + 1), e_idx, g_idx)
     with pytest.raises(ValueError, match="same demo rows"):
         disc_assembly.assemble_fields([(d4, g4), (d1[:5], g1)], e_idx, g_idx)
+    # int64 fields assemble now, equal to JAX (they were refused before).
+    _, acts64 = disc_assembly.assemble_fields([(d4, g4), (d1.long(), g1.long())], e_idx, g_idx)
+    _jax_equal(acts64, d1.long().numpy(), g1.long().numpy(), e_idx.numpy(), g_idx.numpy())
     with pytest.raises(TypeError):
-        disc_assembly.assemble_fields([(d4, g4), (d1.long(), g1.long())], e_idx, g_idx)
+        disc_assembly.assemble_fields([(d4, g4), (d1.long(), g1)], e_idx, g_idx)
     launches = disc_assembly.assemble_fields.launches
     obs, acts = disc_assembly.assemble_fields([(d4, g4), (d1, g1)], e_idx, g_idx)
     assert obs.shape == (8, 4) and acts.shape == (8,) and acts.dtype == torch.int32
@@ -169,3 +190,59 @@ def test_disc_step_assembles_its_batch_in_one_call(monkeypatch):
     tr.train(2 * tr.gen_train_timesteps)
     assert tr.disc_state.step == 4
     assert calls == [4] * 4  # one call per disc step, all four fields in it
+
+
+def _any_field(dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.bool_:
+        return rng.random(shape) < 0.5
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return rng.integers(max(info.min, -10**6), min(info.max, 10**6), shape).astype(dtype)
+    return rng.normal(size=shape).astype(dtype)
+
+
+# Fields that JAX's assemble_rows takes and the port refused before: ranks
+# above 2, rows that are not whole 4-byte words (the kernel's byte path),
+# 64-bit elements, and empty rows.
+ANY_FIELDS = {
+    "uint8 [., 2, 2]": (np.uint8, (2, 2)),
+    "bool [.]": (np.bool_, ()),
+    "float32 [., 2, 2]": (np.float32, (2, 2)),
+    "float16 [., 3]": (np.float16, (3,)),
+    "int8 [., 5]": (np.int8, (5,)),
+    "float64 [., 3]": (np.float64, (3,)),
+    "int64 [.]": (np.int64, ()),
+    "float32 [., 0]": (np.float32, (0,)),  # empty rows: nothing to move
+}
+
+
+@pytest.mark.parametrize("N,C,B,lo,hi", [
+    (3, 3, 2, None, None),  # the 3-row case: e_idx and g_idx of two rows
+    (40, 64, 24, -50, 70),  # out of range both ways
+])
+@pytest.mark.parametrize("kind", list(ANY_FIELDS))
+def test_any_dtype_and_rank_matches_jax(kind, N, C, B, lo, hi):
+    dtype, trailing = ANY_FIELDS[kind]
+    rng = np.random.default_rng(N + B)
+    e_idx = rng.integers(0 if lo is None else lo, N if hi is None else hi, B).astype(np.int32)
+    g_idx = rng.integers(0 if lo is None else lo, C if hi is None else hi, B).astype(np.int32)
+    demo, gen = _any_field(dtype, (N,) + trailing, 1), _any_field(dtype, (C,) + trailing, 2)
+    got = disc_assembly.assemble_rows(*map(torch.from_numpy, (demo, gen, e_idx, g_idx)))
+    assert got.shape == (2 * B,) + trailing
+    _jax_equal(got, demo, gen, e_idx, g_idx)
+
+
+def test_mixed_any_fields_in_one_call_match_jax():
+    N, C, B = 30, 50, 17
+    rng = np.random.default_rng(3)
+    e_idx = rng.integers(-5, N + 5, B).astype(np.int32)
+    g_idx = rng.integers(-5, C + 5, B).astype(np.int32)
+    fields = [(_any_field(dt, (N,) + tr, 2 * k), _any_field(dt, (C,) + tr, 2 * k + 1))
+              for k, (dt, tr) in enumerate(ANY_FIELDS.values())]
+    assert len(fields) <= disc_assembly.MAX_FIELDS
+    got = disc_assembly.assemble_fields(
+        [(torch.from_numpy(d), torch.from_numpy(g)) for d, g in fields],
+        torch.from_numpy(e_idx), torch.from_numpy(g_idx))
+    for out, (demo, gen) in zip(got, fields):
+        _jax_equal(out, demo, gen, e_idx, g_idx)

@@ -81,3 +81,22 @@ def test_discounted_returns_matches_jax(bootstrap):
         None if term_last is None else torch.from_numpy(term_last),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("flag_dtype", [np.bool_, np.int32])
+def test_gae_casts_flag_panels_as_jax(flag_dtype):
+    """Bool or integer terminated/dones are cast to float32 first, as the JAX
+    ``gae`` casts them to the dtype of ``rews``; the other panels stay float32."""
+    rews, values, next_values, terminated, dones = _panels(24, 9, seed=5)
+    flags = (terminated.astype(flag_dtype), dones.astype(flag_dtype))
+    want = jax_gae.gae(*map(jnp.asarray, (rews, values, next_values) + flags), 0.99, 0.95)
+    got = torch_gae.gae(*map(torch.from_numpy, (rews, values, next_values) + flags), 0.99, 0.95)
+    same = torch_gae.gae(*map(torch.from_numpy, (rews, values, next_values, terminated, dones)),
+                         0.99, 0.95)
+    for g, w, s in zip(got, want, same):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        assert torch.equal(g, s)  # the same as float32 flags
+    with pytest.raises(TypeError):  # the value panels must still be float32
+        torch_gae.gae(*map(torch.from_numpy, (rews.astype(np.float64), values, next_values) + flags),
+                      0.99, 0.95)

@@ -65,10 +65,23 @@ OPTIONS = {
 @pytest.mark.parametrize("normalize_features", [False, True])
 @pytest.mark.parametrize("options", list(OPTIONS))
 def test_process_chunk_matches_jax(monkeypatch, normalize_features, options):
+    _process_chunk_case(monkeypatch, "CartPole-v1", normalize_features, OPTIONS[options])
+
+
+@pytest.mark.parametrize("normalize_features", [False, True])
+@pytest.mark.parametrize("options", ["defaults", "linear-lr"])
+def test_process_chunk_continuous_matches_jax(monkeypatch, normalize_features, options):
+    """Pendulum: [T, B, 1] float32 actions through DiagGaussian, and
+    truncations that differ from terminations in GAE's flag panels."""
+    extra = dict(lr_schedule="linear", total_updates_hint=2) if options == "linear-lr" else {}
+    _process_chunk_case(monkeypatch, "Pendulum-v1", normalize_features, extra)
+
+
+def _process_chunk_case(monkeypatch, env_id, normalize_features, options):
     T, B = 16, 8
     cfg_kw = dict(n_steps=T, n_minibatches=4, n_epochs=3, learning_rate=1e-3, ent_coef=0.01,
-                  **OPTIONS[options])
-    jvenv = jax_make_vec_env("CartPole-v1", num_envs=B)
+                  **options)
+    jvenv = jax_make_vec_env(env_id, num_envs=B)
     jpolicy = JaxPolicy(jvenv.observation_space, jvenv.action_space,
                         normalize_features=normalize_features)
     jnet = JaxRewardNet(observation_space=jvenv.observation_space, action_space=jvenv.action_space)
@@ -79,7 +92,11 @@ def test_process_chunk_matches_jax(monkeypatch, normalize_features, options):
 
     jppo = jax_ppo_mod.PPO(jvenv, jpolicy, jax_ppo_mod.PPOConfig(**cfg_kw), reward_fn=jrew_fn)
     jstate = jppo.init_state(jax.random.key(0))
-    jchunk, tchunk = on_policy_aux(jpolicy, jstate.variables, *random_chunk(T, B, seed=11))
+    continuous = not jvenv.action_space.is_discrete
+    shape = dict(obs_dim=3, act_dim=1) if continuous else {}
+    jchunk, tchunk = on_policy_aux(jpolicy, jstate.variables, *random_chunk(T, B, seed=11, **shape))
+    if continuous:
+        assert (tchunk.terminated != tchunk.dones).any()  # truncations: the bootstrap path
     key = jax.random.key(5)
 
     jgae, tgae = [], []
@@ -88,7 +105,7 @@ def test_process_chunk_matches_jax(monkeypatch, normalize_features, options):
     monkeypatch.setattr(torch_ppo_mod, "gae", _recording(torch_ppo_mod.gae, tgae))
 
     def port(rel):
-        venv = make_vec_env("CartPole-v1", num_envs=B, device="cpu")
+        venv = make_vec_env(env_id, num_envs=B, device="cpu")
         policy = ActorCriticPolicy(venv.observation_space, venv.action_space,
                                    normalize_features=normalize_features)
         net = BasicRewardNet(venv.observation_space, venv.action_space)
@@ -127,6 +144,9 @@ def test_process_chunk_matches_jax(monkeypatch, normalize_features, options):
         np.testing.assert_allclose(policy.net.feat_norm.running_var.numpy(), stats["running_var"], rtol=1e-5)
     if cfg_kw.get("target_kl"):
         assert float(jmetrics["early_stop"]) == float(metrics["early_stop"]) == 1.0
+    if cfg_kw.get("lr_schedule") == "linear":
+        # 12 of the 24 scheduled updates done: the next one takes half the rate.
+        assert new.optimizer.count == 12 and new.optimizer.learning_rate == pytest.approx(5e-4)
     for k, v in jmetrics.items():
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-3, atol=1e-5, err_msg=k)
     assert new.timesteps == T * B and new.n_updates == 1
@@ -214,3 +234,83 @@ def test_update_sensitivity_to_float32_noise():
     first, again, nudged = run(0.0), run(0.0), run(FLOOR_NUDGES[0])
     assert all(np.array_equal(first[k], again[k]) for k in first)
     assert any(not np.array_equal(first[k], nudged[k]) for k in first)
+
+
+def test_linear_schedule_matches_optax():
+    """The linear learning rate, value by value and inside Adam, against
+    ``optax.linear_schedule``: the first update takes the full rate, the
+    last of the horizon 1/n of it, and every later one 0."""
+    import optax
+
+    from imitation_tpu_torch.rl.common import linear_schedule, make_optimizer
+
+    horizon = 5
+    want = optax.linear_schedule(2e-2, 0.0, horizon)
+    got = linear_schedule(2e-2, 0.0, horizon)
+    for count in range(horizon + 3):
+        assert got(count) == float(want(jnp.asarray(count, jnp.int32))), count
+    assert got(0) == np.float32(2e-2) and got(horizon) == 0.0
+
+    rng = np.random.default_rng(0)
+    params = [rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=(3,)).astype(np.float32)]
+    tx = optax.chain(optax.clip_by_global_norm(0.5), optax.adam(want))
+    jparams = [jnp.asarray(p) for p in params]
+    opt_state = tx.init(jparams)
+    tparams = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    opt = make_optimizer(tparams, got, max_grad_norm=0.5)
+    for step in range(horizon + 2):
+        assert opt.learning_rate == got(step)
+        grads = [(rng.normal(size=p.shape) * (0.1 if step % 2 else 3.0)).astype(np.float32)
+                 for p in params]
+        updates, opt_state = tx.update([jnp.asarray(g) for g in grads], opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        before = [p.detach().clone() for p in tparams]
+        for p, g in zip(tparams, grads):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        for p, jp in zip(tparams, jparams):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=1e-6, atol=1e-7)
+        if step >= horizon:  # past the horizon the rate is 0: nothing moves
+            assert all(torch.equal(a, b) for a, b in zip(before, tparams))
+
+
+def test_ppo_config_fields_match_jax():
+    import dataclasses
+
+    fields = {f.name: f.default for f in dataclasses.fields(torch_ppo_mod.PPOConfig)}
+    want = {f.name: f.default for f in dataclasses.fields(jax_ppo_mod.PPOConfig)}
+    assert fields == want
+    venv = make_vec_env("CartPole-v1", num_envs=4, device="cpu")
+    policy = ActorCriticPolicy(venv.observation_space, venv.action_space)
+    with pytest.raises(ValueError, match="lr_schedule"):
+        torch_ppo_mod.PPO(venv, policy, torch_ppo_mod.PPOConfig(n_steps=4, n_minibatches=2,
+                                                                lr_schedule="cosine"))
+    # overlap_collection pipelines host envs, which the port lacks: refused, not ignored.
+    with pytest.raises(NotImplementedError, match="overlap_collection"):
+        torch_ppo_mod.PPO(venv, policy, torch_ppo_mod.PPOConfig(n_steps=4, n_minibatches=2,
+                                                                overlap_collection=True))
+
+
+def test_learn_runs_ceil_iterations_and_logs():
+    venv = make_vec_env("Pendulum-v1", num_envs=4, device="cpu")
+    policy = ActorCriticPolicy(venv.observation_space, venv.action_space)
+    cfg = torch_ppo_mod.PPOConfig(n_steps=8, n_minibatches=2, n_epochs=2, lr_schedule="linear",
+                                  total_updates_hint=4, learning_rate=1e-3)
+    ppo = torch_ppo_mod.PPO(venv, policy, cfg, seed=0)
+    from imitation_tpu_torch.util.logger import configure
+
+    logger = configure(format_strs=())
+    rows, seen = [], []
+    logger.default_logger.output_formats.append(type("Capture", (), {
+        "write": lambda self, kvs, step: rows.append((step, dict(kvs))), "close": lambda self: None})())
+    state = ppo.learn(ppo.init_state(), 2 * 32 + 1, callback=lambda s, m: seen.append((s.timesteps, m)),
+                      logger=logger)
+    assert state.timesteps == 3 * 32 and state.n_updates == 3  # ceil(65 / 32) iterations
+    assert [t for t, _ in seen] == [32, 64, 96] == [step for step, _ in rows]
+    assert all(np.isfinite(row["rollout/loss"]) for _, row in rows)
+    assert seen[0][1]["loss"] == rows[0][1]["rollout/loss"]
+    # 3 of the 4 hinted train steps, 4 updates each: the rate is down to a quarter.
+    assert state.optimizer.count == 12
+    assert state.optimizer.learning_rate == pytest.approx(2.5e-4)
+    state = ppo.learn(state, 1)  # at least one iteration, no host read
+    assert state.timesteps == 4 * 32 and state.optimizer.learning_rate == 0.0

@@ -37,14 +37,21 @@ def host(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def random_chunk(T: int, B: int, seed: int, obs_dim: int = 4):
-    """One [T, B] CartPole-shaped rollout chunk, as (jax, torch) chunks."""
+def random_chunk(T: int, B: int, seed: int, obs_dim: int = 4, act_dim=None):
+    """One [T, B] rollout chunk, as (jax, torch) chunks: CartPole-shaped
+    (int32 actions in {0, 1}), or with ``act_dim`` float32 actions
+    ``[T, B, act_dim]`` (Pendulum-shaped at ``obs_dim=3, act_dim=1``)."""
     rng = np.random.default_rng(seed)
     terminated = rng.random((T, B)) < 0.05
     truncated = (rng.random((T, B)) < 0.05) & ~terminated
+    obs = rng.normal(scale=0.5, size=(T, B, obs_dim)).astype(np.float32)
+    if act_dim is None:
+        acts = rng.integers(0, 2, (T, B)).astype(np.int32)
+    else:
+        acts = rng.normal(size=(T, B, act_dim)).astype(np.float32)
     arrays = dict(
-        obs=rng.normal(scale=0.5, size=(T, B, obs_dim)).astype(np.float32),
-        acts=rng.integers(0, 2, (T, B)).astype(np.int32),
+        obs=obs,
+        acts=acts,
         rews=np.ones((T, B), np.float32),
         next_obs=rng.normal(scale=0.5, size=(T, B, obs_dim)).astype(np.float32),
         terminated=terminated,
@@ -66,9 +73,10 @@ def random_chunk(T: int, B: int, seed: int, obs_dim: int = 4):
 def on_policy_aux(jax_policy, variables, jchunk, tchunk):
     """Sets both chunks' ``aux`` to the JAX policy's own log-probs and values,
     as a rollout under that policy would have recorded them."""
-    T, B = jchunk.acts.shape
+    T, B = jchunk.acts.shape[:2]
     dist, value = jax_policy.dist_and_value(variables, jchunk.obs.reshape(T * B, -1))
-    aux = dict(log_prob=np.asarray(dist.log_prob(jchunk.acts.reshape(-1))).reshape(T, B),
+    acts = jchunk.acts.reshape((T * B,) + jchunk.acts.shape[2:])
+    aux = dict(log_prob=np.asarray(dist.log_prob(acts)).reshape(T, B),
                value=np.asarray(value).reshape(T, B))
     jchunk = jchunk.replace(aux={k: jnp.asarray(v) for k, v in aux.items()})
     tchunk = tchunk.replace(aux={k: torch.from_numpy(v.copy()) for k, v in aux.items()})
