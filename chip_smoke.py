@@ -20,8 +20,9 @@ Phases, each timed and printed on its own line:
    [., 2, 2]), alone and mixed with word fields and offset bases;
    out-of-range indices. Times each kernel and its plain version and, for
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
-   CUDA events (median of repeats); B1 at [128, 1024], [64, 64] and
-   [2048, 4096], B2 per disc step. ``device_ms`` is the kernel's own device
+   CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
+   [2048, 4096] and the CLI's [256, 8], B2 per disc step (the CLI defaults'
+   included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -45,6 +46,29 @@ Phases, each timed and printed on its own line:
    envs x 256 steps, demo batch 1024, 4 disc updates, 10 expert episodes).
 8. rl: ``PPO.learn`` on device Pendulum-v1 for 2 iterations at 1024 x 128
    with the linear learning rate, printed after each.
+9. bc_cartpole: ``BC.train`` on the GAIL phase's demos (128 scripted
+   episodes, 12,800 rows) with a (32, 32) tanh ``FeedForward32Policy`` with
+   feature normalization, at the JAX CLI's BC defaults (batch 32, ent 1e-3,
+   l2 0, lr 1e-3) for 2 epochs; then a fresh trainer for 1 epoch at batch 64
+   with ``minibatch_size=16`` (gradient accumulation).
+10. bc_pendulum: the same on 64 scripted Pendulum-v1 episodes of 200 rows,
+   batch 64, l2 1e-4, 2 epochs (the DiagGaussian branch).
+11. dagger_cartpole: ``SimpleDAggerTrainer.train`` on 16 device CartPole-v1
+   envs with the scripted expert, BC at batch 16, l2 1e-4, lr 1e-3,
+   ``LinearBetaSchedule(15)``, the CLI's 4000 timesteps, 3 episodes and
+   500 timesteps a round, in a temporary scratch dir; then
+   ``save_trainer``, ``reconstruct_trainer`` and one more round.
+12. dagger_pendulum: the same on Pendulum-v1, ``ExponentialBetaSchedule(0.7)``
+   and 2000 timesteps.
+
+The BC and DAgger phases print seconds per epoch, steps per second, host
+reads per epoch (asserted one: BC reads an epoch's stacked metrics once),
+DAgger seconds per round split into collection and BC, demo rows per round,
+and returns over 64 episodes on 64 device envs before and after (not
+asserted). They assert finite losses, that ``prob_true_act`` on the demos
+rose, that every saved DAgger demo records the expert's actions on its
+observations, and that the rebuilt trainer's policy equals the saved one.
+Neither launches B1 or B2: their learner steps are eager PyTorch.
 
 Every path (gail, airl, airl_fused, airl_cli, rl) is driven with the
 kernels' launch counts set to 0 just before it and read just after: B1 must
@@ -60,6 +84,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -161,7 +186,8 @@ def check_kernels(torch, dev):
                        f"grid {gae.launch_shape(T, B)}")
         return err
 
-    timed = ((128, 1024), (64, 64), (2048, 4096))  # main path, HalfCheetah path, large
+    # main path, HalfCheetah path, large, the CLI's AIRL round
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl) and
     # [256, 8] (airl_cli); then the HalfCheetah path's, edge shapes and a large one.
@@ -197,10 +223,13 @@ def check_kernels(torch, dev):
         log("kernels", f"gae [{T},{B}]: call {ms:.4f} ms, device {dev_ms} ms, bound {bound:.5f} ms "
                        f"(bytes {gae_bytes}), device time at {share} of the bound; "
                        f"grid {gae.launch_shape(T, B)}")
+    cli_plain_ms = cuda_ms(lambda: gae.gae_plain(*kept[(256, 8)], gamma, lam), reps=5)
+    log("kernels", f"gae [256,8]: plain {cli_plain_ms:.4f} ms")
     T, B = 128, 1024
     ms, dev_ms, bound, gae_bytes, gae_ops = gae_rows[(T, B)]
     plain_ms = cuda_ms(lambda: gae.gae_plain(*kept[(T, B)], gamma, lam), reps=5)
     log("kernels", f"gae [{T},{B}]: plain {plain_ms:.4f} ms")
+    cli_ms, cli_dev_ms, cli_bound = gae_rows[(256, 8)][:3]
     entries.append(dict(
         name="gae", route="cuda", source="imitation_tpu_torch/csrc/gae.cu",
         replaces="imitation_tpu/ops/gae_pallas.py:30",
@@ -208,6 +237,8 @@ def check_kernels(torch, dev):
         bound_by="bytes" if gae_bytes / HBM_BYTES_PER_S >= gae_ops / F32_FLOP_PER_S else "operations",
         library_ms=None, device_ms=dev_ms, shape=f"[{T}, {B}] f32 x5 -> x2",
         grid=gae.launch_shape(T, B),
+        airl_cli=dict(shape="[256, 8] f32 x5 -> x2", ms=cli_ms, device_ms=cli_dev_ms,
+                      plain_ms=cli_plain_ms, bound_ms=cli_bound, grid=gae.launch_shape(256, 8)),
     ))
 
     # -- B2 disc-batch assembly: one launch for a disc step's fields ----------------
@@ -279,7 +310,7 @@ def check_kernels(torch, dev):
     airl = check_fused("AIRL disc step", N, C, Bd, airl_kinds)
     # The AIRL round at the CLI's defaults: 10 expert episodes of 200 rows, a
     # replay ring of 8 envs x 256 steps, demo batch 1024.
-    check_fused("AIRL disc step at the CLI defaults", 2000, 2048, 1024, airl_kinds)
+    airl_cli = check_fused("AIRL disc step at the CLI defaults", 2000, 2048, 1024, airl_kinds)
     byte = check_fused("byte path, disc-step size", N, C, Bd, byte_kinds)
     for name, kinds, n, c, b, spread in (
         ("edge-1row", (((1,), f32, 0),), 5, 5, 1, 0),
@@ -301,6 +332,7 @@ def check_kernels(torch, dev):
     gail_row = time_b2("GAIL disc step (4 fields)", *gail, Bd)
     airl_row = time_b2("AIRL disc step (4 fields)", *airl, Bd)
     byte_row = time_b2("byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])", *byte, Bd)
+    airl_cli_row = time_b2("AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
     dev_obs = device_ms(lambda: disc_assembly.assemble_rows(gail[0][0][0], gail[0][0][1], gail[1], gail[2]),
                         50, "assemble_fields_kernel")
     log("kernels", f"assemble_fields GAIL obs field alone: device {dev_obs} ms")
@@ -315,6 +347,7 @@ def check_kernels(torch, dev):
         grid={"ctas": -(-2 * Bd // 128), "threads": 128},
         airl_disc_step=dict(airl_row, shape="obs/next_obs [., 3] f32, acts [., 1] f32, dones [.] f32"),
         byte_path=dict(byte_row, shape="uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]"),
+        airl_cli=dict(airl_cli_row, shape="demo [2000], replay [2048], B=1024, the AIRL fields"),
     ))
     return entries
 
@@ -669,6 +702,226 @@ def run_rl(torch, dev, num_envs=1024, n_steps=128, iterations=2):
     return {"rl": launches}
 
 
+def eval_returns(torch, policy, venv, seed):
+    """Mean return of the first 64 episodes the policy samples on ``venv``
+    (64 envs), as BC's ``log_rollouts_venv`` evaluation rolls out."""
+    from imitation_tpu_torch.data import rollout
+
+    trajs = rollout.generate_trajectories(policy.sample_fn(), venv, rollout.make_min_episodes(64), rng=seed)
+    return float(sum(t.rews.sum() for t in trajs[:64]) / 64)
+
+
+def demo_metrics(torch, bc, policy=None):
+    """BC's metrics (``BCTrainingMetrics`` names) of ``policy`` (default
+    the trainer's) on all of the trainer's demos, in one forward."""
+    from imitation_tpu_torch.algorithms.bc import METRIC_NAMES, loss_calculator
+
+    fn = bc.loss_fn if policy is None else loss_calculator(policy, bc.ent_weight, bc.l2_weight)
+    batch = bc._demo_store.batch
+    with torch.no_grad():
+        _, m = fn(batch.obs, batch.acts)
+    return dict(zip(METRIC_NAMES, m.cpu().tolist()))
+
+
+def timed_epochs(torch, phase, bc, **train_kw):
+    """``bc.train(**train_kw)`` timed, with its host reads counted by the
+    trainer and, as a cross-check, the synchronizing CUDA calls that
+    ``torch.cuda``'s sync debug mode reports. Returns seconds."""
+    import warnings
+
+    epochs = train_kw["n_epochs"]
+    reads0, batches0 = bc.host_reads, bc.num_batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            bc.train(**train_kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps, reads = bc.num_batches - batches0, bc.host_reads - reads0
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    log(phase, f"BC {epochs} epoch(s) at batch {bc.batch_size} (minibatch {bc.minibatch_size}): "
+               f"{steps} steps in {secs:.3f} s = {secs / epochs:.3f} s per epoch, "
+               f"{steps / secs:.1f} steps/s; host reads {reads} ({reads / epochs:g} per epoch); "
+               f"sync debug mode saw {len(sites)} synchronizing calls, at {sorted(set(sites))}")
+    if reads != epochs:
+        raise AssertionError(f"{phase}: {reads} host reads in {epochs} epochs, expected one per epoch")
+    return secs
+
+
+def profile_bc(torch, phase, bc, n=50):
+    """``n`` more BC steps under torch.profiler: kernels and kernel time
+    per step against the profiled wall time per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bc.train(n_batches=n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_name = kernel_times(prof)
+    count = sum(c for c, _ in per_name.values())
+    busy = sum(us for _, us in per_name.values())
+    log(phase, f"{n} BC steps under torch.profiler: {count / n:.1f} kernels and {busy / n:.1f} us of "
+               f"kernel time per step, {1e3 * wall / n:.3f} ms of wall per step (profiled), "
+               f"busy {100 * busy / 1e6 / wall:.1f}%")
+    for name, (c, us) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(phase, f"  x{c / n:<5.1f} per step {us / c:7.2f} us each  {name[:80]}")
+
+
+def check_learned(phase, before, after):
+    log(phase, "demo metrics before -> after: " + ", ".join(
+        f"{k} {before[k]:.4g} -> {after[k]:.4g}" for k in ("loss", "neglogp", "prob_true_act", "l2_norm")))
+    if not all(math.isfinite(v) for v in list(before.values()) + list(after.values())):
+        raise AssertionError(f"{phase}: non-finite BC metrics")
+    if not after["prob_true_act"] > before["prob_true_act"]:
+        raise AssertionError(f"{phase}: prob_true_act on the demos did not rise")
+
+
+def run_bc(torch, dev, env_name, phase, demo_kw, bc_kw, epochs, accumulate=None):
+    """BC through ``BC.train`` on device demos of the scripted expert, with
+    a (32, 32) tanh policy with feature normalization; returns before and
+    after, each the mean of 64 episodes on 64 device envs."""
+    from imitation_tpu_torch.algorithms.bc import BC
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.policies import FeedForward32Policy
+
+    demos, _ = expert_demos(torch, phase, env_name, 64, 64, dev, **demo_kw)
+    eval_venv = make_vec_env(env_name, num_envs=64, device=dev)
+    space = eval_venv.observation_space, eval_venv.action_space
+
+    def make_bc(**kw):
+        return BC(observation_space=space[0], action_space=space[1], demonstrations=demos,
+                  policy=FeedForward32Policy(*space, normalize_features=True), rng=0,
+                  custom_logger=make_logger(), device=dev, **kw)
+
+    bc = make_bc(**bc_kw)
+    ret0 = eval_returns(torch, bc.policy, eval_venv, seed=1)
+    before = demo_metrics(torch, bc)
+    timed_epochs(torch, phase, bc, n_epochs=epochs)
+    after = demo_metrics(torch, bc)
+    ret1 = eval_returns(torch, bc.policy, eval_venv, seed=2)
+    log(phase, f"{bc._demo_store.num_samples} demo rows; return over 64 episodes before {ret0:.4g}, "
+               f"after {ret1:.4g}")
+    for row in bc.logger.rows:
+        log(phase, f"logged at batch {row['mean/bc/batch']}: loss {row['mean/bc/loss']:.4g}, "
+                   f"prob_true_act {row['mean/bc/prob_true_act']:.4g}")
+    check_learned(phase, before, after)
+    if not all(bool(torch.isfinite(p).all()) for p in bc.policy.parameters()):
+        raise AssertionError(f"{phase}: non-finite parameters after training")
+    profile_bc(torch, phase, bc)
+    if accumulate is not None:
+        acc = make_bc(**dict(bc_kw, **accumulate))
+        before = demo_metrics(torch, acc)
+        timed_epochs(torch, phase, acc, n_epochs=1)
+        check_learned(phase, before, demo_metrics(torch, acc))
+
+
+def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps):
+    """``SimpleDAggerTrainer.train`` on 16 device envs with the scripted
+    expert, then ``save_trainer``, ``reconstruct_trainer`` and one more
+    round of the rebuilt trainer."""
+    import tempfile
+
+    from imitation_tpu_torch.algorithms import dagger
+    from imitation_tpu_torch.algorithms.bc import BC
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.policies import FeedForward32Policy
+    from imitation_tpu_torch.testing import experts
+
+    venv = make_vec_env(env_name, num_envs=16, device=dev)
+    eval_venv = make_vec_env(env_name, num_envs=64, device=dev)
+    space = venv.observation_space, venv.action_space
+    expert = experts.expert_for(env_name)
+
+    def check_demos(trainer):
+        for t in trainer._all_demos:
+            want, _ = expert(torch.as_tensor(t.obs[:-1], device=dev))
+            if not torch.equal(torch.as_tensor(t.acts, device=dev), want):
+                raise AssertionError(f"{phase}: a saved demo's actions are not the expert's")
+
+    def drive(trainer, total, what):
+        """Rounds of ``trainer.train(total)``, each split into collection and
+        BC (``extend_and_update``), with its demo rows and beta."""
+        rounds, bc_secs = [], []
+        extend = trainer.extend_and_update
+
+        def timed_extend(kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = extend(kwargs)
+            torch.cuda.synchronize()
+            bc_secs.append(time.perf_counter() - t)
+            return out
+
+        trainer.extend_and_update = timed_extend
+        reads0, batches0 = trainer.bc_trainer.host_reads, trainer.bc_trainer.num_batches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks = [t0]
+
+        def on_round_end(r, n):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            rounds.append((trainer.round_num, n, trainer.bc_trainer._demo_store.num_samples))
+
+        trainer.train(total, rollout_round_min_episodes=3, rollout_round_min_timesteps=500,
+                      on_round_end=on_round_end)
+        del trainer.extend_and_update
+        epochs = dagger.DEFAULT_N_EPOCHS * len(rounds)
+        reads = trainer.bc_trainer.host_reads - reads0
+        for i, (r, n, rows) in enumerate(rounds):
+            secs = marks[i + 1] - marks[i]
+            log(phase, f"{what} round {r - 1} (beta {trainer.beta_schedule(r - 1):.4g}): {secs:.3f} s = "
+                       f"collection {secs - bc_secs[i]:.3f} s + BC {bc_secs[i]:.3f} s; "
+                       f"{n} env steps collected in this call, {rows} demo rows now")
+        steps = trainer.bc_trainer.num_batches - batches0
+        log(phase, f"{what}: {len(rounds)} round(s), {steps} BC steps ({steps / sum(bc_secs):.1f} steps/s "
+                   f"inside BC, evaluations included), host reads {reads} ({reads / epochs:g} per epoch)")
+        if reads != epochs:
+            raise AssertionError(f"{phase}: {reads} host reads in {epochs} epochs")
+        for row in trainer.logger.rows:
+            if "mean/bc/loss" in row and not math.isfinite(row["mean/bc/loss"]):
+                raise AssertionError(f"{phase}: non-finite BC loss")
+        check_demos(trainer)
+
+    bc = BC(observation_space=space[0], action_space=space[1],
+            policy=FeedForward32Policy(*space, normalize_features=True), rng=0, batch_size=16,
+            l2_weight=1e-4, optimizer_kwargs=dict(learning_rate=1e-3), custom_logger=make_logger(),
+            device=dev)
+    with tempfile.TemporaryDirectory(prefix="dagger_smoke_") as scratch:
+        trainer = dagger.SimpleDAggerTrainer(venv=venv, scratch_dir=scratch, expert_policy_apply=expert,
+                                             rng=0, beta_schedule=schedule, bc_trainer=bc,
+                                             custom_logger=make_logger())
+        # CartPole-v1 ends an episode when the pole falls, so its lengths
+        # vary once the robot steps (Pendulum's are all 200).
+        trainer.allow_variable_horizon = True
+        init_policy = copy.deepcopy(trainer.policy)
+        ret0 = eval_returns(torch, trainer.policy, eval_venv, seed=1)
+        drive(trainer, total_timesteps, "train")
+        check_learned(phase, demo_metrics(torch, trainer.bc_trainer, init_policy),
+                      demo_metrics(torch, trainer.bc_trainer))
+        t0 = time.perf_counter()
+        ckpt, policy_path = trainer.save_trainer()
+        loaded = dagger.reconstruct_trainer(scratch, venv, make_logger())
+        saved = trainer.policy.state_dict()
+        same = all(torch.equal(v, saved[k]) for k, v in loaded.policy.state_dict().items())
+        log(phase, f"save_trainer + reconstruct_trainer {time.perf_counter() - t0:.3f} s "
+                   f"({ckpt.name}, {policy_path.name}): round {loaded.round_num}, "
+                   f"{len(loaded._all_demos)} demos, policy equal to the saved one: {same}")
+        if not same or type(loaded) is not type(trainer) or loaded.round_num != trainer.round_num:
+            raise AssertionError(f"{phase}: the reconstructed trainer differs from the saved one")
+        drive(loaded, 1, "reconstructed")
+        ret1 = eval_returns(torch, loaded.policy, eval_venv, seed=2)
+    log(phase, f"return over 64 episodes before {ret0:.4g}, after {ret1:.4g}")
+
+
 def profile_round(torch, phase, trainer, s_per_round):
     """One more round under torch.profiler. Splits it by the port's own
     ``record_function`` ranges, named for the algorithm (``gail.disc_step``,
@@ -762,6 +1015,28 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(run_rl(torch, dev))
     log("rl", f"done in {time.perf_counter() - t0:.2f} s")
+
+    # BC and DAgger launch neither kernel: their learner steps are eager
+    # PyTorch, as the JAX package computes them outside any Pallas kernel.
+    from imitation_tpu_torch.algorithms import dagger
+
+    for phase, fn in (
+        ("bc_cartpole", lambda: run_bc(
+            torch, dev, "CartPole-v1", "bc_cartpole", dict(max_episode_steps=100),
+            dict(batch_size=32, ent_weight=1e-3, l2_weight=0.0, optimizer_kwargs=dict(learning_rate=1e-3)),
+            epochs=2, accumulate=dict(batch_size=64, minibatch_size=16))),
+        ("bc_pendulum", lambda: run_bc(
+            torch, dev, "Pendulum-v1", "bc_pendulum", {},
+            dict(batch_size=64, l2_weight=1e-4, optimizer_kwargs=dict(learning_rate=1e-3)), epochs=2)),
+        ("dagger_cartpole", lambda: run_dagger(
+            torch, dev, "CartPole-v1", "dagger_cartpole", dagger.LinearBetaSchedule(15), 4000)),
+        ("dagger_pendulum", lambda: run_dagger(
+            torch, dev, "Pendulum-v1", "dagger_pendulum", dagger.ExponentialBetaSchedule(0.7), 2000)),
+    ):
+        t0 = time.perf_counter()
+        zero_counts()
+        fn()
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

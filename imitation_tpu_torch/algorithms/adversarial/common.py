@@ -44,7 +44,7 @@ from imitation_tpu_torch.data import types
 from imitation_tpu_torch.data.buffer import BufferState, ReplayBuffer
 from imitation_tpu_torch.data.rollout import chunk_to_transitions
 from imitation_tpu_torch.envs.vector import VectorEnv
-from imitation_tpu_torch.models.networks import RunningNorm
+from imitation_tpu_torch.models.networks import NormLayer
 from imitation_tpu_torch.models.policies import ActorCriticPolicy
 from imitation_tpu_torch.ops.disc_assembly import assemble_fields
 from imitation_tpu_torch.rewards.reward_nets import RewardNet
@@ -311,9 +311,10 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         logits = torch.cat([logits_k[:, :mb].reshape(B), logits_k[:, mb:].reshape(B)])
         optimizer.step()
         stats = compute_train_stats(logits, labels, loss)
-        if any(isinstance(m, RunningNorm) for m in net.modules()):
-            # Fold this batch into the input normalizer's running stats
-            # (a shaped net's normalizer sits in its base).
+        if any(isinstance(m, NormLayer) for m in net.modules()):
+            # Fold this batch into the input normalizers' statistics, of any
+            # kind (a shaped net's normalizer sits in its base), as JAX folds
+            # the whole "stats" collection.
             with torch.no_grad():
                 net(obs, acts, next_obs, dones, update_stats=True)
         return dataclasses.replace(disc_state, step=disc_state.step + 1), stats

@@ -9,8 +9,9 @@ Port of ``imitation_tpu/algorithms/base.py``:
 * ``DemonstrationAlgorithm``: the ``set_demonstrations`` / ``policy``
   interface.
 * ``DemonstrationStore``: demonstrations normalised once into a
-  device-resident ``TransitionBatch`` (the minibatch streams BC uses are
-  not ported yet).
+  device-resident ``TransitionBatch``, with epoch-shuffled minibatch index
+  matrices drawn on the device (``epoch_indices``) and with-replacement
+  minibatches (``sample``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ from imitation_tpu_torch.data import rollout as rollout_mod
 from imitation_tpu_torch.data import types
 from imitation_tpu_torch.util.logger import HierarchicalLogger, configure
 
-AnyDemonstrations = Union[Sequence[types.Trajectory], types.TransitionBatch]
+AnyDemonstrations = Union[
+    Sequence[types.Trajectory], types.TransitionsMinimal, types.TransitionBatch
+]
 
 
 class BaseImitationAlgorithm(abc.ABC):
@@ -107,14 +110,18 @@ class DemonstrationAlgorithm(BaseImitationAlgorithm):
 def demonstrations_to_batch(
     demonstrations: AnyDemonstrations, device: torch.device
 ) -> types.TransitionBatch:
-    """Normalises trajectories or a TransitionBatch to a batch on ``device``."""
+    """Normalises trajectories, host transitions or a TransitionBatch to a
+    batch on ``device``."""
     if isinstance(demonstrations, types.TransitionBatch):
         return demonstrations.to(device)
+    if isinstance(demonstrations, types.TransitionsMinimal):
+        return types.TransitionBatch.from_host(demonstrations).to(device)
     items = list(demonstrations)
     if not items:
         raise ValueError("Empty demonstrations.")
     if isinstance(items[0], types.Trajectory):
-        return rollout_mod.flatten_trajectories(items).to(device)
+        flat = rollout_mod.flatten_trajectories(items)
+        return types.TransitionBatch.from_host(flat).to(device)
     raise TypeError(f"`demonstrations` unsupported type: {type(items[0])}")
 
 
@@ -133,3 +140,32 @@ class DemonstrationStore:
     @property
     def num_samples(self) -> int:
         return self.batch.batch_size
+
+    def epoch_indices(
+        self, generator: torch.Generator, batch_size: int, drop_last: bool = True
+    ) -> torch.Tensor:
+        """``[n_batches, batch_size]`` shuffled row indices for one epoch, on
+        the generator's device. Without ``drop_last`` a ragged last batch is
+        padded by wrapping around to the start of the permutation."""
+        n = self.num_samples
+        if batch_size > n:
+            raise ValueError(f"batch_size={batch_size} larger than dataset size {n}")
+        perm = _permutation(n, generator)
+        n_batches = n // batch_size
+        if not drop_last and n % batch_size != 0:
+            pad = (n_batches + 1) * batch_size - n
+            perm = torch.cat([perm, perm[:pad]])
+            n_batches += 1
+        return perm[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+    def sample(self, generator: torch.Generator, batch_size: int) -> types.TransitionBatch:
+        """A uniform with-replacement minibatch."""
+        idx = torch.randint(0, self.num_samples, (batch_size,), generator=generator,
+                            device=generator.device)
+        return self.batch.take(idx)
+
+
+def _permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """The shuffle of one demonstration epoch (tests substitute the JAX
+    package's)."""
+    return torch.randperm(n, generator=generator, device=generator.device)

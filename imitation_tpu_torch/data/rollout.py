@@ -7,13 +7,16 @@ Port of the device-env half of ``imitation_tpu/data/rollout.py``:
   package scans one traced step, this is a Python loop of eager launches.
 * ``generate_trajectories``: collects complete episodes until a
   ``sample_until`` condition holds, cuts them on the host into
-  ``TrajectoryWithRew`` objects and shuffles them, as the reference does.
+  ``TrajectoryWithRew`` objects and shuffles them, as the reference does;
+  ``rollout`` and ``generate_transitions`` build on it.
+* Host helpers: the ``sample_until`` conditions, ``flatten_trajectories``
+  (``_with_rew``), ``rollout_stats`` and ``discounted_sum``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,6 +123,32 @@ def make_min_episodes(n: int) -> GenTrajTerminationFn:
     return lambda trajectories: len(trajectories) >= n
 
 
+def make_min_timesteps(n: int) -> GenTrajTerminationFn:
+    """Terminate after collecting at least n timesteps."""
+    if n < 1:
+        raise ValueError(f"n must be positive, got {n}")
+    return lambda trajectories: sum(len(t) for t in trajectories) >= n
+
+
+def make_sample_until(
+    min_timesteps: Optional[int] = None,
+    min_episodes: Optional[int] = None,
+) -> GenTrajTerminationFn:
+    """Terminate once every given condition holds."""
+    if min_timesteps is None and min_episodes is None:
+        raise ValueError("At least one of min_timesteps and min_episodes must be provided")
+    conditions = []
+    if min_timesteps is not None:
+        if min_timesteps < 1:
+            raise ValueError(f"min_timesteps={min_timesteps} if provided must be positive")
+        conditions.append(make_min_timesteps(min_timesteps))
+    if min_episodes is not None:
+        if min_episodes < 1:
+            raise ValueError(f"min_episodes={min_episodes} if provided must be positive")
+        conditions.append(make_min_episodes(min_episodes))
+    return lambda trajectories: all(cond(trajectories) for cond in conditions)
+
+
 # ---------------------------------------------------------------------------
 # Host-side conversion: chunks -> trajectories
 # ---------------------------------------------------------------------------
@@ -209,27 +238,66 @@ def generate_trajectories(
     return trajectories
 
 
-def flatten_trajectories(trajectories: Sequence[types.Trajectory]) -> types.TransitionBatch:
-    """Flattens trajectories into a TransitionBatch on the CPU.
+def rollout(
+    policy_apply: PolicyApply,
+    venv: VectorEnv,
+    sample_until: GenTrajTerminationFn,
+    rng: Union[int, np.random.Generator],
+    *,
+    verbose: bool = False,
+    **kwargs,
+) -> Sequence[types.TrajectoryWithRew]:
+    """``generate_trajectories``, printing ``rollout_stats`` if ``verbose``."""
+    trajs = generate_trajectories(policy_apply, venv, sample_until, rng, **kwargs)
+    if verbose:
+        print(f"Rollout stats: {rollout_stats(trajs)}")
+    return trajs
 
-    ``dones`` marks the last step of each terminal trajectory; ``rews`` is
-    zeros, as in the JAX package's ``TransitionBatch.from_host`` of plain
-    ``Transitions``. Arrays become 32-bit, as JAX's ``asarray`` makes them.
+
+def generate_transitions(
+    policy_apply: PolicyApply,
+    venv: VectorEnv,
+    n_timesteps: int,
+    rng: Union[int, np.random.Generator],
+    *,
+    truncate: bool = True,
+    **kwargs,
+) -> types.TransitionsWithRew:
+    """At least ``n_timesteps`` transitions from whole episodes, cut to
+    exactly ``n_timesteps`` if ``truncate``."""
+    trajs = generate_trajectories(policy_apply, venv, make_min_timesteps(n_timesteps), rng, **kwargs)
+    transitions = flatten_trajectories_with_rew(trajs)
+    if truncate:
+        fields = {f.name: getattr(transitions, f.name) for f in dataclasses.fields(transitions)}
+        transitions = types.TransitionsWithRew(**{k: v[:n_timesteps] for k, v in fields.items()})
+    return transitions
+
+
+def flatten_trajectories(trajectories: Sequence[types.Trajectory]) -> types.Transitions:
+    """Flattens trajectories into host transitions.
+
+    ``dones`` marks the last step of each terminal trajectory; ``infos`` are
+    empty dicts where a trajectory has none.
     """
-    obs = np.concatenate([t.obs[:-1] for t in trajectories]).astype(np.float32)
-    next_obs = np.concatenate([t.obs[1:] for t in trajectories]).astype(np.float32)
-    acts = np.concatenate([t.acts for t in trajectories])
-    acts = acts.astype(np.int32 if np.issubdtype(acts.dtype, np.integer) else np.float32)
-    dones = np.concatenate([
-        np.arange(len(t)) == len(t) - 1 if t.terminal else np.zeros(len(t), bool)
-        for t in trajectories
-    ])
-    return types.TransitionBatch(
-        obs=torch.from_numpy(np.ascontiguousarray(obs)),
-        acts=torch.from_numpy(np.ascontiguousarray(acts)),
-        next_obs=torch.from_numpy(np.ascontiguousarray(next_obs)),
-        dones=torch.from_numpy(dones.astype(np.float32)),
-        rews=torch.zeros(len(acts), dtype=torch.float32),
+    parts: Dict[str, List[np.ndarray]] = {k: [] for k in ("obs", "next_obs", "acts", "dones", "infos")}
+    for traj in trajectories:
+        parts["obs"].append(traj.obs[:-1])
+        parts["next_obs"].append(traj.obs[1:])
+        parts["acts"].append(traj.acts)
+        dones = np.zeros(len(traj.acts), dtype=bool)
+        dones[-1] = traj.terminal
+        parts["dones"].append(dones)
+        parts["infos"].append(np.array([{}] * len(traj)) if traj.infos is None else traj.infos)
+    return types.Transitions(**{k: np.concatenate(v) for k, v in parts.items()})
+
+
+def flatten_trajectories_with_rew(
+    trajectories: Sequence[types.TrajectoryWithRew],
+) -> types.TransitionsWithRew:
+    transitions = flatten_trajectories(trajectories)
+    return types.TransitionsWithRew(
+        **{f.name: getattr(transitions, f.name) for f in dataclasses.fields(transitions)},
+        rews=np.concatenate([traj.rews for traj in trajectories]),
     )
 
 
@@ -250,3 +318,15 @@ def rollout_stats(trajectories: Sequence[types.TrajectoryWithRew]) -> Mapping[st
         for stat_name in ("min", "mean", "std", "max"):
             out_stats[f"{desc_name}_{stat_name}"] = float(getattr(np, stat_name)(desc_vals))
     return out_stats
+
+
+def discounted_sum(arr: np.ndarray, gamma: float) -> Union[np.ndarray, float]:
+    """Discounted sum of ``arr`` along its first axis."""
+    if arr.ndim == 0:
+        raise ValueError("arr must have at least one dimension")
+    if gamma == 1.0:
+        return arr.sum(axis=0)
+    discounts = gamma ** np.arange(arr.shape[0])
+    if arr.ndim == 1:
+        return float(discounts @ arr)
+    return np.tensordot(discounts, arr, axes=(0, 0))

@@ -40,6 +40,22 @@ class Space:
             return int(self.n)
         return int(np.prod(self.shape)) if self.shape else 1
 
+    def sample(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """``n`` uniform draws, ``[n, *shape]``, on the generator's device:
+        int32 in ``[0, n)`` for a discrete space; float32 in ``[low, high)``
+        for a box (``[-1, 1)`` where a bound is missing)."""
+        dev = generator.device
+        shape = (n,) + tuple(self.shape)
+        if self.is_discrete:
+            return torch.randint(0, self.n, shape, generator=generator, device=dev,
+                                 dtype=torch.int32)
+        low, high = (
+            torch.tensor(np.broadcast_to(default if bound is None else bound, self.shape)
+                         .astype(np.float32), device=dev)
+            for bound, default in ((self.low, -1.0), (self.high, 1.0))
+        )
+        return low + torch.rand(shape, generator=generator, device=dev) * (high - low)
+
     @classmethod
     def discrete(cls, n: int) -> "Space":
         return cls(shape=(), dtype=np.int32, n=n)

@@ -45,6 +45,11 @@ class Categorical:
         lp = self.log_probs_all
         return -(torch.exp(lp) * lp).sum(dim=-1)
 
+    def kl(self, other: "Categorical") -> torch.Tensor:
+        """KL(self || other) over the last axis."""
+        lp, lq = self.log_probs_all, other.log_probs_all
+        return (torch.exp(lp) * (lp - lq)).sum(dim=-1)
+
 
 @dataclasses.dataclass
 class DiagGaussian:

@@ -5,8 +5,11 @@ Port of ``imitation_tpu/models/networks.py``:
 * ``MLP``: hidden sizes, optional input normalization layer,
   squeezed scalar output. Layers keep the flax names (``dense0``, ...,
   ``dense_out``, ``input_norm``) so ``convert.py`` maps weights one to one.
-* ``RunningNorm``: Chan et al. streaming moments with the same update rule,
-  including the first batch adopting its own statistics outright.
+* ``NormLayer``: the base of the input normalization layers, whose
+  statistics are buffers; ``RunningNorm``: Chan et al. streaming moments with
+  the same update rule, including the first batch adopting its own
+  statistics outright; ``EMANorm``: bias-corrected exponential moving
+  averages of the moments.
 
 Linear layers are initialised as flax's ``Dense`` is: LeCun-normal kernels
 (a normal truncated at two standard deviations, variance 1/fan_in) and zero
@@ -46,12 +49,13 @@ def init_dense_(layer: nn.Linear, generator: Optional[torch.Generator] = None) -
         layer.bias.zero_()
 
 
-class RunningNorm(nn.Module):
-    """Streaming mean/var via the Chan et al. parallel update.
+class NormLayer(nn.Module):
+    """Base of the input normalization layers with streaming statistics.
 
-    The statistics are buffers (``running_mean``, ``running_var``, ``count``).
-    ``update_stats=True`` folds the batch in before normalizing, matching the
-    JAX layer's train-time behaviour.
+    The statistics are buffers (``running_mean``, ``running_var``,
+    ``count``). ``update_stats=True`` folds the batch in before normalizing,
+    matching the JAX layers' train-time behaviour; subclasses define
+    ``update``.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
@@ -66,6 +70,18 @@ class RunningNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
         self.count.zero_()
+
+    def update(self, x: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        if update_stats:
+            self.update(x)
+        return (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+
+
+class RunningNorm(NormLayer):
+    """Streaming mean/var via the Chan et al. parallel update."""
 
     @torch.no_grad()
     def update(self, x: torch.Tensor) -> None:
@@ -89,10 +105,39 @@ class RunningNorm(nn.Module):
         self.running_var.copy_(torch.where(is_first, b_var, new_var))
         self.count.copy_(total)
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        if update_stats:
-            self.update(x)
-        return (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+
+class EMANorm(NormLayer):
+    """Bias-corrected EMA of the mean and of the mean square.
+
+    The raw (uncorrected) accumulators are the buffers ``raw_mean`` and
+    ``raw_sq``; ``count`` counts updates, not rows. After ``k`` updates the
+    moments are the raw ones divided by ``1 - decay**k``, and the variance is
+    the corrected mean square less the squared corrected mean, floored at 0.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, decay: float = 0.99):
+        super().__init__(num_features, eps)
+        self.decay = decay
+        self.register_buffer("raw_mean", torch.zeros(num_features))
+        self.register_buffer("raw_sq", torch.zeros(num_features))
+
+    def reset_stats(self) -> None:
+        super().reset_stats()
+        self.raw_mean.zero_()
+        self.raw_sq.zero_()
+
+    @torch.no_grad()
+    def update(self, x: torch.Tensor) -> None:
+        b = x.reshape(-1, self.num_features).float()
+        d = self.decay
+        self.raw_mean.copy_(d * self.raw_mean + (1 - d) * b.mean(dim=0))
+        self.raw_sq.copy_(d * self.raw_sq + (1 - d) * (b * b).mean(dim=0))
+        self.count.add_(1)
+        correction = 1.0 - torch.pow(d, self.count.float())  # float32, as in JAX
+        corr_mean = self.raw_mean / correction
+        corr_sq = self.raw_sq / correction
+        self.running_mean.copy_(corr_mean)
+        self.running_var.copy_(torch.clamp(corr_sq - corr_mean * corr_mean, min=0.0))
 
 
 class MLP(nn.Module):
@@ -105,7 +150,7 @@ class MLP(nn.Module):
         out_size: int = 1,
         activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
         squeeze_output: bool = False,
-        normalize_input_layer: Optional[Type[RunningNorm]] = None,
+        normalize_input_layer: Optional[Type[NormLayer]] = None,
     ):
         super().__init__()
         if squeeze_output and out_size != 1:

@@ -5,20 +5,28 @@ module definition with a separate variables dict; here ``ActorCriticPolicy``
 is an ``nn.Module`` that owns its parameters, and its methods take only the
 observations:
 
-* ``value(obs)``, ``dist_and_value(obs)``;
+* ``distribution(obs)``, ``value(obs)``, ``dist_and_value(obs)``;
 * ``evaluate_actions(obs, acts, update_stats=False)`` -> (log_prob,
   entropy, value), SB3's ``evaluate_actions``;
-* ``sample_fn()`` -> a rollout closure
-  ``(obs, generator) -> (acts, {"log_prob", "value"})``.
+* ``sample_fn()`` and ``deterministic_fn()`` (the distribution's mode) ->
+  rollout closures ``(obs, generator) -> (acts, {"log_prob", "value"})``;
+* ``predict(obs, deterministic, seed)``: numpy in, numpy out, SB3 style.
+
+``FeedForward32Policy`` is the (32, 32) actor-critic; ``RandomPolicy`` and
+``ZeroPolicy`` are the non-trainable baselines, with the same rollout
+closures.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from imitation_tpu_torch import make_generator
 from imitation_tpu_torch.envs.base import Space
 from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.models.distributions import Categorical, DiagGaussian
@@ -75,20 +83,29 @@ class ActorCriticNet(nn.Module):
         if self.feat_norm is not None:
             self.feat_norm.reset_stats()
 
-    def forward(self, obs: torch.Tensor, update_stats: bool = False):
+    def _features(self, obs: torch.Tensor, update_stats: bool) -> torch.Tensor:
         x = obs.reshape(obs.shape[0], -1).float()
         if self.feat_norm is not None:
             x = self.feat_norm(x, update_stats=update_stats)
-        pi_x, vf_x = x, x
+        return x
+
+    def _dist(self, x: torch.Tensor):
         for i in range(len(self.hid_sizes)):
-            pi_x = self.activation(getattr(self, f"pi{i}")(pi_x))
-            vf_x = self.activation(getattr(self, f"vf{i}")(vf_x))
-        value = self.vf_out(vf_x).squeeze(-1)
+            x = self.activation(getattr(self, f"pi{i}")(x))
         if self.action_space.is_discrete:
-            dist = Categorical(logits=self.pi_out(pi_x))
-        else:
-            dist = DiagGaussian(mean=self.pi_out(pi_x), log_std=self.log_std)
-        return dist, value
+            return Categorical(logits=self.pi_out(x))
+        return DiagGaussian(mean=self.pi_out(x), log_std=self.log_std)
+
+    def forward(self, obs: torch.Tensor, update_stats: bool = False):
+        x = self._features(obs, update_stats)
+        vf_x = x
+        for i in range(len(self.hid_sizes)):
+            vf_x = self.activation(getattr(self, f"vf{i}")(vf_x))
+        return self._dist(x), self.vf_out(vf_x).squeeze(-1)
+
+    def distribution(self, obs: torch.Tensor):
+        """The action distribution alone (the value torso is not run)."""
+        return self._dist(self._features(obs, update_stats=False))
 
 
 class ActorCriticPolicy(nn.Module):
@@ -122,6 +139,9 @@ class ActorCriticPolicy(nn.Module):
         self.net.reset_parameters(generator)
         return self
 
+    def distribution(self, obs: torch.Tensor):
+        return self.net.distribution(obs)
+
     def value(self, obs: torch.Tensor) -> torch.Tensor:
         return self.net(obs)[1]
 
@@ -133,16 +153,36 @@ class ActorCriticPolicy(nn.Module):
             return act.to(torch.int32)
         return act.reshape((-1,) + tuple(self.action_space.shape))
 
-    def sample_fn(self):
-        """(obs, generator) -> (acts, {log_prob, value}) for rollouts."""
-
+    def _rollout_fn(self, deterministic: bool):
         @torch.no_grad()
         def f(obs: torch.Tensor, generator: Optional[torch.Generator] = None):
             dist, value = self.net(obs)
-            acts = dist.sample(generator)
+            acts = dist.mode() if deterministic else dist.sample(generator)
             return self._format_act(acts), {"log_prob": dist.log_prob(acts), "value": value}
 
         return f
+
+    def sample_fn(self):
+        """(obs, generator) -> (acts, {log_prob, value}) for rollouts."""
+        return self._rollout_fn(deterministic=False)
+
+    def deterministic_fn(self):
+        """As ``sample_fn``, with the distribution's mode for the action."""
+        return self._rollout_fn(deterministic=True)
+
+    def predict(self, obs, deterministic: bool = False, seed: int = 0) -> np.ndarray:
+        """SB3-style host prediction: numpy observations in (one, or a batch
+        with a leading axis), numpy actions out. Sampling draws from a
+        generator seeded with ``seed`` on the policy's device."""
+        device = next(self.parameters()).device
+        obs_t = torch.as_tensor(np.asarray(obs), device=device)
+        single = obs_t.dim() == len(self.observation_space.shape)
+        if single:
+            obs_t = obs_t[None]
+        fn = self.deterministic_fn() if deterministic else self.sample_fn()
+        acts, _ = fn(obs_t, make_generator(seed, device))
+        acts = acts.cpu().numpy()
+        return acts[0] if single else acts
 
     def evaluate_actions(self, obs: torch.Tensor, acts: torch.Tensor, update_stats: bool = False):
         """Returns (log_prob, entropy, value), SB3's ``evaluate_actions``.
@@ -156,3 +196,56 @@ class ActorCriticPolicy(nn.Module):
         else:
             acts_in = acts.reshape(acts.shape[0], -1)
         return dist.log_prob(acts_in), dist.entropy(), value
+
+
+def FeedForward32Policy(observation_space: Space, action_space: Space, **kwargs) -> ActorCriticPolicy:
+    """The (32, 32) actor-critic, the reference's ``FeedForward32Policy``."""
+    return ActorCriticPolicy(observation_space, action_space, hid_sizes=(32, 32), **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Non-trainable policies
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RandomPolicy:
+    """Uniform-random actions (``Space.sample``)."""
+
+    observation_space: Space
+    action_space: Space
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "RandomPolicy":
+        return self
+
+    def sample_fn(self):
+        space = self.action_space
+
+        def f(obs: torch.Tensor, generator: torch.Generator):
+            return space.sample(obs.shape[0], generator), {}
+
+        return f
+
+    deterministic_fn = sample_fn
+
+
+@dataclasses.dataclass
+class ZeroPolicy:
+    """All-zero actions: int32 for a discrete space, float32 for a box."""
+
+    observation_space: Space
+    action_space: Space
+
+    def init(self, generator: Optional[torch.Generator] = None) -> "ZeroPolicy":
+        return self
+
+    def sample_fn(self):
+        space = self.action_space
+        dtype = torch.int32 if space.is_discrete else torch.float32
+
+        def f(obs: torch.Tensor, generator: Optional[torch.Generator] = None):
+            return torch.zeros((obs.shape[0],) + tuple(space.shape), dtype=dtype, device=obs.device), {}
+
+        return f
+
+    deterministic_fn = sample_fn

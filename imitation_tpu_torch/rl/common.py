@@ -148,6 +148,17 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_add_(params, upd)
         return norm
 
+    def state_dict(self) -> Dict[str, Any]:
+        """``torch.optim.Optimizer.state_dict`` plus the update count."""
+        state = super().state_dict()
+        state["count"] = self.count
+        return state
+
+    def load_state_dict(self, state_dict: Mapping[str, Any]) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
 
 def make_optimizer(
     params: Iterable[torch.nn.Parameter],

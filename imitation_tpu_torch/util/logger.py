@@ -1,8 +1,8 @@
 """Hierarchical metrics logger with accumulate-means contexts.
 
-A copy of the subset of ``imitation_tpu/util/logger.py`` that the adversarial
-trainer's ``train`` uses: ``record``, ``accumulate_means`` and ``dump``,
-writing to stdout. Inside an ``accumulate_means(name)`` context
+A copy of the subset of ``imitation_tpu/util/logger.py`` that the trainers
+use: ``record``, ``record_mean``, ``accumulate_means``, ``dump``, ``warn`` and
+``info``, writing to stdout. Inside an ``accumulate_means(name)`` context
 raw values go to a per-context sub-logger while running means accumulate
 into ``mean/{name}/{key}`` of the default logger, flushed at the next
 default ``dump``. No files are written.
@@ -72,6 +72,9 @@ class _Logger:
     def warn(self, msg: str) -> None:
         print(f"WARNING: {msg}", file=sys.stderr)
 
+    def info(self, msg: str) -> None:
+        print(msg)
+
 
 class HierarchicalLogger:
     """Two-tier logger with accumulate_means contexts."""
@@ -111,11 +114,17 @@ class HierarchicalLogger:
         else:
             self.default_logger.record(key, value)
 
+    def record_mean(self, key: str, value: Any) -> None:
+        (self.current_logger or self.default_logger).record_mean(key, value)
+
     def dump(self, step: int = 0) -> None:
         (self.current_logger or self.default_logger).dump(step)
 
     def warn(self, msg: str) -> None:
         self.default_logger.warn(msg)
+
+    def info(self, msg: str) -> None:
+        self.default_logger.info(msg)
 
 
 def configure(format_strs: Optional[Sequence[str]] = ("stdout",)) -> HierarchicalLogger:

@@ -9,6 +9,10 @@ common.py:299-305) are recomputed from its keys and fed to the port through
 ``_epoch_permutation`` and ``_disc_indices``. The rollout is one fixed chunk
 for both.
 
+The disc step runs with no input normalizer, a RunningNorm and an EMANorm
+(a JAX reward net of the test's own with that layer): the port folds the
+batch into any normalizer's statistics, as JAX folds any "stats" collection.
+
 Tolerances: disc loss and stats 1e-5 (the same float32 forward);
 parameters 1e-5 of the largest parameter update, raised where needed to 4x
 the case's own float32 floor, as in tests/test_torch_ppo.py (the floor is
@@ -22,12 +26,15 @@ import numpy as np
 import pytest
 import torch
 
+import flax.linen as flax_nn
 import imitation_tpu.data.rollout as jax_rollout
 import imitation_tpu_torch.algorithms.adversarial.common as torch_common
 import imitation_tpu_torch.rl.ppo as torch_ppo_mod
 from imitation_tpu.algorithms.adversarial.gail import GAIL as JaxGAIL
 from imitation_tpu.data.types import TransitionBatch as JaxBatch
 from imitation_tpu.envs import make_vec_env as jax_make_vec_env
+from imitation_tpu.models.networks import MLP as JaxMLP
+from imitation_tpu.models.networks import EMANorm as JaxEMANorm
 from imitation_tpu.rewards.reward_nets import BasicRewardNet as JaxRewardNet
 from imitation_tpu.rl.ppo import PPOConfig as JaxPPOConfig
 from imitation_tpu.util.logger import configure as jax_configure
@@ -35,6 +42,7 @@ from imitation_tpu_torch import convert
 from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
 from imitation_tpu_torch.data.types import TransitionBatch
 from imitation_tpu_torch.envs import make_vec_env
+from imitation_tpu_torch.models.networks import EMANorm
 from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
 from imitation_tpu_torch.rl.ppo import PPOConfig
 from imitation_tpu_torch.testing import experts
@@ -62,6 +70,37 @@ def _transitions(n, seed):
             TransitionBatch(**{k: torch.from_numpy(v) for k, v in arrays.items()}))
 
 
+class JaxEMARewardNet(JaxRewardNet):
+    """The JAX package's BasicRewardNet with an EMANorm input layer, whose
+    "stats" collection the disc step folds as it folds RunningNorm's."""
+
+    @flax_nn.compact
+    def __call__(self, obs, acts, next_obs, dones, *, update_stats=False):
+        obs_p, acts_p, _, _ = self.preprocess(obs, acts, next_obs, dones)
+        x = jax.numpy.concatenate([obs_p, acts_p], axis=-1)
+        x = JaxEMANorm(num_features=x.shape[-1], name="input_norm")(x, update_stats=update_stats)
+        return JaxMLP(hid_sizes=tuple(self.hid_sizes), out_size=1, activation=self.activation,
+                      squeeze_output=True, name="mlp")(x)
+
+
+def _reward_nets(jvenv, normalize):
+    """(JAX reward net, maker of the port's) with no input normalizer, a
+    RunningNorm (``normalize=True``) or an EMANorm (``"ema"``)."""
+    spaces_kw = dict(observation_space=jvenv.observation_space, action_space=jvenv.action_space)
+    if normalize == "ema":
+        jnet = JaxEMARewardNet(**spaces_kw)
+    else:
+        jnet = JaxRewardNet(normalize_input=normalize, **spaces_kw)
+
+    def port_net(venv):
+        net = BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=bool(normalize))
+        if normalize == "ema":
+            net.input_norm = EMANorm(net.input_norm.num_features)
+        return net
+
+    return jnet, port_net
+
+
 def _trainers(tmp_path, *, normalize=False, demo_batch_size=64, minibatch=None, n_demo=300,
               n_steps=16, num_envs=8, n_epochs=2):
     """The JAX trainer, and a maker of port trainers that start from its
@@ -71,10 +110,9 @@ def _trainers(tmp_path, *, normalize=False, demo_batch_size=64, minibatch=None, 
     common = dict(demo_batch_size=demo_batch_size, demo_minibatch_size=minibatch,
                   n_disc_updates_per_round=2, allow_variable_horizon=True, seed=0)
     jvenv = jax_make_vec_env("CartPole-v1", num_envs=num_envs)
+    jnet, port_net = _reward_nets(jvenv, normalize)
     jtr = JaxGAIL(
-        demonstrations=jdemo, venv=jvenv, gen_config=JaxPPOConfig(**ppo_kw),
-        reward_net=JaxRewardNet(observation_space=jvenv.observation_space,
-                                action_space=jvenv.action_space, normalize_input=normalize),
+        demonstrations=jdemo, venv=jvenv, gen_config=JaxPPOConfig(**ppo_kw), reward_net=jnet,
         custom_logger=jax_configure(str(tmp_path), format_strs=[]), **common,
     )
     jreward = host(jtr.disc_state.variables)
@@ -83,8 +121,7 @@ def _trainers(tmp_path, *, normalize=False, demo_batch_size=64, minibatch=None, 
         venv = make_vec_env("CartPole-v1", num_envs=num_envs, device="cpu")
         tr = GAIL(
             demonstrations=tdemo, venv=venv, gen_config=PPOConfig(**ppo_kw),
-            reward_net=BasicRewardNet(venv.observation_space, venv.action_space,
-                                      normalize_input=normalize),
+            reward_net=port_net(venv),
             custom_logger=configure(format_strs=()), **common,
         )
         tr.reward_net.load_state_dict(convert.reward_net_state_dict(jreward))
@@ -94,7 +131,7 @@ def _trainers(tmp_path, *, normalize=False, demo_batch_size=64, minibatch=None, 
 
 
 @pytest.mark.parametrize("minibatch", [None, 16])
-@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("normalize", [False, True, "ema"])
 def test_disc_step_matches_jax(tmp_path, monkeypatch, minibatch, normalize):
     B, n_demo, n_gen = 64, 300, 128
     jtr, port_trainer = _trainers(tmp_path, normalize=normalize, minibatch=minibatch, n_demo=n_demo)
@@ -128,10 +165,11 @@ def test_disc_step_matches_jax(tmp_path, monkeypatch, minibatch, normalize):
                         jtr.disc_state.variables["params"], "", param_tolerance(floor))
     if normalize:
         want = host(jds.variables["stats"])["input_norm"]
-        np.testing.assert_allclose(tr.reward_net.input_norm.running_mean.numpy(),
-                                   want["running_mean"], **STAT_TOL)
-        np.testing.assert_allclose(tr.reward_net.input_norm.running_var.numpy(),
-                                   want["running_var"], **STAT_TOL)
+        names = ("running_mean", "running_var") + (("raw_mean", "raw_sq") if normalize == "ema" else ())
+        for name in names:
+            np.testing.assert_allclose(getattr(tr.reward_net.input_norm, name).numpy(), want[name],
+                                       **STAT_TOL, err_msg=name)
+        assert int(tr.reward_net.input_norm.count) == int(want["count"]) > 0
 
 
 def test_gail_round_matches_jax(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
-"""Policy, reward net and RunningNorm in imitation_tpu_torch against the JAX
-package, after carrying the flax weights across with ``convert``.
+"""Policy, reward net, RunningNorm, EMANorm, Categorical.kl and the
+baseline policies in imitation_tpu_torch against the JAX package, after
+carrying the flax weights across with ``convert``.
 
 Tolerance 1e-5 (relative and absolute): the same float32 arithmetic, with
 matrix products summed in another order by XLA and by PyTorch.
@@ -11,12 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from imitation_tpu.models.distributions import Categorical as JaxCategorical
+from imitation_tpu.models.networks import EMANorm as JaxEMANorm
 from imitation_tpu.models.networks import RunningNorm as JaxRunningNorm
 from imitation_tpu.models.policies import ActorCriticPolicy as JaxPolicy
+from imitation_tpu.models.policies import FeedForward32Policy as JaxFeedForward32Policy
+from imitation_tpu.models.policies import RandomPolicy as JaxRandomPolicy
+from imitation_tpu.models.policies import ZeroPolicy as JaxZeroPolicy
 from imitation_tpu.rewards.reward_nets import BasicRewardNet as JaxRewardNet
 from imitation_tpu_torch import convert
-from imitation_tpu_torch.models.networks import RunningNorm
-from imitation_tpu_torch.models.policies import ActorCriticPolicy
+from imitation_tpu_torch.models.distributions import Categorical
+from imitation_tpu_torch.models.networks import EMANorm, RunningNorm
+from imitation_tpu_torch.models.policies import (
+    ActorCriticPolicy, FeedForward32Policy, RandomPolicy, ZeroPolicy,
+)
 from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
 from tests.torch_parity import host, spaces
 
@@ -145,3 +154,87 @@ def test_init_matches_flax_distribution():
     ])
     assert abs(w.std().item() - jw.std()) < 0.01
     assert w.abs().max().item() <= 2 * np.sqrt(1 / 32) / 0.8796256610342398 + 1e-6
+
+
+def test_categorical_kl_matches_jax():
+    rng = np.random.default_rng(6)
+    p, q = (rng.normal(scale=2.0, size=(64, 5)).astype(np.float32) for _ in range(2))
+    want = JaxCategorical(jnp.asarray(p)).kl(JaxCategorical(jnp.asarray(q)))
+    got = Categorical(torch.from_numpy(p)).kl(Categorical(torch.from_numpy(q)))
+    _close(got, want)
+    assert torch.allclose(Categorical(torch.from_numpy(p)).kl(Categorical(torch.from_numpy(p))),
+                          torch.zeros(64), atol=1e-6)
+
+
+@pytest.mark.parametrize("decay", [0.99, 0.5])
+def test_ema_norm_update_matches_jax(decay):
+    """Bias-corrected moments over several update batches of other sizes."""
+    rng = np.random.default_rng(7)
+    batches = [rng.normal(loc=-1.0, scale=2.0, size=(n, 3)).astype(np.float32) for n in (7, 50, 1, 13)]
+    jnorm = JaxEMANorm(num_features=3, decay=decay)
+    variables = jnorm.init(jax.random.key(0), jnp.asarray(batches[0]))
+    norm = EMANorm(3, decay=decay)
+    norm.load_state_dict(convert.flax_to_state_dict(host(variables)))
+    _close(norm(torch.from_numpy(batches[0])), jnorm.apply(variables, jnp.asarray(batches[0])))
+    for b in batches:
+        jout, variables = jnorm.apply(variables, jnp.asarray(b), update_stats=True, mutable=["stats"])
+        out = norm(torch.from_numpy(b), update_stats=True)
+        _close(out, jout)
+        stats = host(variables)["stats"]
+        for name in ("running_mean", "running_var", "raw_mean", "raw_sq"):
+            _close(getattr(norm, name), stats[name])
+        assert int(norm.count) == int(stats["count"])
+    probe = rng.normal(size=(5, 3)).astype(np.float32)
+    _close(norm(torch.from_numpy(probe)), jnorm.apply(variables, jnp.asarray(probe)))
+    norm.reset_stats()
+    assert int(norm.count) == 0 and not norm.raw_sq.any() and (norm.running_var == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["discrete", "continuous"])
+def test_deterministic_fn_and_predict_match_jax(kind):
+    jobs, jact, tobs, tact = spaces(kind)
+    jpol = JaxFeedForward32Policy(jobs, jact, normalize_features=True)
+    variables = jpol.init(jax.random.key(2))
+    pol = FeedForward32Policy(tobs, tact, normalize_features=True)
+    assert pol.net.hid_sizes == (32, 32)
+    pol.load_state_dict(convert.policy_state_dict(host(variables)))
+    obs = _inputs(kind, 16, seed=8)[0]
+    jacts, jaux = jpol.deterministic_fn()(variables, jnp.asarray(obs), jax.random.key(0))
+    acts, aux = pol.deterministic_fn()(torch.from_numpy(obs), torch.Generator())
+    assert acts.dtype == (torch.int32 if kind == "discrete" else torch.float32)
+    assert tuple(acts.shape) == tuple(jacts.shape)
+    _close(acts, jacts)
+    _close(aux["log_prob"], jaux["log_prob"])
+    _close(aux["value"], jaux["value"])
+    # predict: numpy in and out, a batch or one observation.
+    batch = pol.predict(obs, deterministic=True)
+    np.testing.assert_allclose(batch, np.asarray(jpol.predict(variables, obs, deterministic=True)), **TOL)
+    one = pol.predict(obs[3], deterministic=True)
+    assert np.shape(one) == tuple(tact.shape)
+    np.testing.assert_allclose(one, np.asarray(jpol.predict(variables, obs[3], deterministic=True)), **TOL)
+    # Sampling: the seed picks the draw; the same seed repeats it.
+    draws = pol.predict(np.repeat(obs[:1], 256, axis=0), seed=3)
+    np.testing.assert_array_equal(draws, pol.predict(np.repeat(obs[:1], 256, axis=0), seed=3))
+    assert draws.shape == (256,) + tuple(tact.shape) and len(np.unique(draws, axis=0)) > 1
+
+
+@pytest.mark.parametrize("kind", ["discrete", "continuous"])
+def test_random_and_zero_policies_match_jax(kind):
+    jobs, jact, tobs, tact = spaces(kind)
+    obs = _inputs(kind, 512, seed=9)[0]
+    for jcls, cls in ((JaxRandomPolicy, RandomPolicy), (JaxZeroPolicy, ZeroPolicy)):
+        jpol, pol = jcls(jobs, jact), cls(tobs, tact)
+        assert pol.init(torch.Generator()) is pol
+        for fn_name in ("sample_fn", "deterministic_fn"):
+            jacts, jaux = getattr(jpol, fn_name)()({}, jnp.asarray(obs), jax.random.key(0))
+            acts, aux = getattr(pol, fn_name)()(torch.from_numpy(obs), torch.Generator().manual_seed(0))
+            assert aux == {} and jaux == {}
+            assert tuple(acts.shape) == tuple(jacts.shape) == (512,) + tuple(tact.shape)
+            assert str(acts.dtype).split(".")[-1] == str(np.asarray(jacts).dtype)
+            if cls is ZeroPolicy:
+                assert not acts.any()
+            elif kind == "discrete":
+                assert set(acts.unique().tolist()) == {0, 1}
+            else:
+                assert (acts >= -2.0).all() and (acts < 2.0).all()
+                assert abs(acts.mean().item()) < 0.2 and acts.std().item() > 0.9  # U[-2, 2): std 1.15
