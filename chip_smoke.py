@@ -60,6 +60,33 @@ Phases, each timed and printed on its own line:
    ``save_trainer``, ``reconstruct_trainer`` and one more round.
 12. dagger_pendulum: the same on Pendulum-v1, ``ExponentialBetaSchedule(0.7)``
    and 2000 timesteps.
+13. sac_pendulum: ``SAC.learn`` on 16 device Pendulum-v1 envs at the
+   expert-training settings (train_freq 16, 256 gradient steps of batch 256
+   a round, (256, 256) actor and critics, lr 3e-4), ``learning_starts`` cut
+   to 2,560: 10 rounds with masked updates, then 6 learning rounds under the
+   CUDA sync debug mode (asserted: no host read); s/round, updates/s, the
+   actor's forward on the card against the CPU on 4096 replay rows, and one
+   profiled round split by ``sac.collect``, ``sac.buffer_store`` and
+   ``sac.update`` (kernels and kernel time per update).
+14. sqil_cartpole: ``SQIL.train`` (DQN) on 8 device CartPole-v1 envs at
+   benchmarking/run_small_algos.py:52-67 (train_freq 4, batch 64, 4
+   gradient steps, lr 1e-4, target copy every 2000 steps, exploration 0.3
+   -> 0.05) on 10 scripted episodes, 20,000 steps (cut from 300,000).
+15. sqil_pendulum: ``SQIL.train`` (SAC) on 8 device Pendulum-v1 envs at the
+   ``train_imitation sqil`` defaults (learning_starts 500, batch 64, lr
+   3e-4) on 10 scripted episodes, 3,000 steps (cut from 10,000).
+16. airl_sac / gail_sac: AIRL and GAIL with a SAC generator on 8 device
+   Pendulum-v1 envs at ``train_adversarial airl|gail with sac`` (train_freq
+   256, SAC batch 64, learning_starts 100, demo batch 1024, 4 disc updates,
+   10 scripted episodes): AIRL 2 rounds of ``train`` and 2 of
+   ``train_fused`` on a fresh trainer, GAIL 1 round of ``train``; then B2
+   on the AIRL trainer's own demo store and ring, exactly against its plain
+   version, timed beside its bound and the ``index_select`` + ``cat`` route.
+
+The SQIL phases print steps and updates per second, the metrics of one
+more step (losses asserted finite), returns over 64 episodes before and
+after (not asserted), and assert that SQIL's sampled batch is half fresh
+rows labelled 0, then half expert rows labelled 1.
 
 The BC and DAgger phases print seconds per epoch, steps per second, host
 reads per epoch (asserted one: BC reads an epoch's stacked metrics once),
@@ -68,11 +95,13 @@ and returns over 64 episodes on 64 device envs before and after (not
 asserted). They assert finite losses, that ``prob_true_act`` on the demos
 rose, that every saved DAgger demo records the expert's actions on its
 observations, and that the rebuilt trainer's policy equals the saved one.
-Neither launches B1 or B2: their learner steps are eager PyTorch.
+Neither launches B1 or B2: their learner steps are eager PyTorch; nor do
+the SAC and SQIL phases.
 
-Every path (gail, airl, airl_fused, airl_cli, rl) is driven with the
-kernels' launch counts set to 0 just before it and read just after: B1 must
-launch once per round or iteration and B2 once per disc step. The reward
+Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
+airl_sac_fused, gail_sac) is driven with the kernels' launch counts set to
+0 just before it and read just after: B2 must launch once per disc step,
+and B1 once per round or iteration of a PPO path and never on a SAC one. The reward
 nets' forward on the card is held against a CPU copy on 4096 replay rows.
 
 Then one JSON line listing the kernels, the nvidia-smi line, and the last
@@ -216,29 +245,29 @@ def check_kernels(torch, dev):
         big = T * B > 10**6
         ms = cuda_ms(lambda: gae.gae(*p, gamma, lam), reps=20 if big else 200)
         dev_ms = device_ms(lambda: gae.gae(*p, gamma, lam), 10 if big else 50, "gae_kernel")
+        # The plain version is a reverse Python loop of T steps.
+        plain = cuda_ms(lambda: gae.gae_plain(*p, gamma, lam), reps=1 if big else 5, repeats=3 if big else 5)
         gae_bytes, gae_ops = 7 * T * B * 4, 10 * T * B
         bound = max(gae_bytes / HBM_BYTES_PER_S, gae_ops / F32_FLOP_PER_S) * 1e3
         share = f"{100 * bound / dev_ms:.1f}%" if dev_ms else "not measured"
-        gae_rows[(T, B)] = (ms, dev_ms, bound, gae_bytes, gae_ops)
-        log("kernels", f"gae [{T},{B}]: call {ms:.4f} ms, device {dev_ms} ms, bound {bound:.5f} ms "
-                       f"(bytes {gae_bytes}), device time at {share} of the bound; "
+        gae_rows[(T, B)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+                                grid=gae.launch_shape(T, B))
+        log("kernels", f"gae [{T},{B}]: call {ms:.4f} ms, device {dev_ms} ms, plain {plain:.4f} ms, "
+                       f"bound {bound:.5f} ms (bytes {gae_bytes}), device time at {share} of the bound; "
                        f"grid {gae.launch_shape(T, B)}")
-    cli_plain_ms = cuda_ms(lambda: gae.gae_plain(*kept[(256, 8)], gamma, lam), reps=5)
-    log("kernels", f"gae [256,8]: plain {cli_plain_ms:.4f} ms")
     T, B = 128, 1024
-    ms, dev_ms, bound, gae_bytes, gae_ops = gae_rows[(T, B)]
-    plain_ms = cuda_ms(lambda: gae.gae_plain(*kept[(T, B)], gamma, lam), reps=5)
-    log("kernels", f"gae [{T},{B}]: plain {plain_ms:.4f} ms")
-    cli_ms, cli_dev_ms, cli_bound = gae_rows[(256, 8)][:3]
+    gae_bytes, gae_ops = 7 * T * B * 4, 10 * T * B
+    main_row = gae_rows[(T, B)]
     entries.append(dict(
         name="gae", route="cuda", source="imitation_tpu_torch/csrc/gae.cu",
-        replaces="imitation_tpu/ops/gae_pallas.py:30",
-        max_abs_err=err_path, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        replaces="imitation_tpu/ops/gae_pallas.py:30", max_abs_err=err_path,
+        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms")},
         bound_by="bytes" if gae_bytes / HBM_BYTES_PER_S >= gae_ops / F32_FLOP_PER_S else "operations",
-        library_ms=None, device_ms=dev_ms, shape=f"[{T}, {B}] f32 x5 -> x2",
-        grid=gae.launch_shape(T, B),
-        airl_cli=dict(shape="[256, 8] f32 x5 -> x2", ms=cli_ms, device_ms=cli_dev_ms,
-                      plain_ms=cli_plain_ms, bound_ms=cli_bound, grid=gae.launch_shape(256, 8)),
+        library_ms=None, device_ms=main_row["device_ms"], shape=f"[{T}, {B}] f32 x5 -> x2",
+        grid=main_row["grid"],
+        airl_cli=dict(gae_rows[(256, 8)], shape="[256, 8] f32 x5 -> x2"),
+        halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
+        large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
 
     # -- B2 disc-batch assembly: one launch for a disc step's fields ----------------
@@ -277,25 +306,6 @@ def check_kernels(torch, dev):
                        f"{describe(kinds)}: exact, one launch")
         return pairs, e, gi
 
-    def b2_bytes(pairs, b):  # indices read once; each row read once and written once
-        return 2 * b * 4 + sum(2 * 2 * b * d[0].numel() * d.element_size() for d, _ in pairs)
-
-    def time_b2(what, pairs, e, gi, b):
-        fused = lambda: disc_assembly.assemble_fields(pairs, e, gi)
-        plain = lambda: [disc_assembly.assemble_rows_plain(d, gr, e, gi) for d, gr in pairs]
-        yardstick = lambda: [torch.cat([torch.index_select(d, 0, e), torch.index_select(gr, 0, gi)])
-                             for d, gr in pairs]  # one PyTorch call chain per field
-        row = dict(ms=cuda_ms(fused, reps=200), plain_ms=cuda_ms(plain, reps=100),
-                   library_ms=cuda_ms(yardstick, reps=200),
-                   device_ms=device_ms(fused, 50, "assemble_fields_kernel"),
-                   library_device_ms=device_ms(yardstick, 50, ""),
-                   bound_ms=b2_bytes(pairs, b) / HBM_BYTES_PER_S * 1e3, bytes=b2_bytes(pairs, b))
-        log("kernels", f"assemble_fields {what} ({row['bytes']} bytes, grid {-(-2 * b // 128)} x 128): "
-                       f"call {row['ms']:.4f} ms, device {row['device_ms']} ms, plain {row['plain_ms']:.4f} ms, "
-                       f"{len(pairs)} x (index_select+index_select+cat) call {row['library_ms']:.4f} ms "
-                       f"device {row['library_device_ms']} ms, bound {row['bound_ms']:.6f} ms")
-        return row
-
     f32, i32 = torch.float32, torch.int32
     N, C, Bd = 12800, 131072, 2048  # demo rows, replay rows, demo_batch_size
     # GAIL CartPole: obs [., 4] f32, acts [.] int32, next_obs [., 4] f32, dones [.] f32.
@@ -329,10 +339,11 @@ def check_kernels(torch, dev):
     ):
         check_fused(name, n, c, b, kinds, spread)
 
-    gail_row = time_b2("GAIL disc step (4 fields)", *gail, Bd)
-    airl_row = time_b2("AIRL disc step (4 fields)", *airl, Bd)
-    byte_row = time_b2("byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])", *byte, Bd)
-    airl_cli_row = time_b2("AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
+    gail_row = time_b2(torch, "kernels", "GAIL disc step (4 fields)", *gail, Bd)
+    airl_row = time_b2(torch, "kernels", "AIRL disc step (4 fields)", *airl, Bd)
+    byte_row = time_b2(torch, "kernels", "byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])",
+                       *byte, Bd)
+    airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
     dev_obs = device_ms(lambda: disc_assembly.assemble_rows(gail[0][0][0], gail[0][0][1], gail[1], gail[2]),
                         50, "assemble_fields_kernel")
     log("kernels", f"assemble_fields GAIL obs field alone: device {dev_obs} ms")
@@ -350,6 +361,32 @@ def check_kernels(torch, dev):
         airl_cli=dict(airl_cli_row, shape="demo [2000], replay [2048], B=1024, the AIRL fields"),
     ))
     return entries
+
+
+def b2_bytes(pairs, b):
+    """B2's least traffic: indices read once; each row read once and written once."""
+    return 2 * b * 4 + sum(2 * 2 * b * d[0].numel() * d.element_size() for d, _ in pairs)
+
+
+def time_b2(torch, phase, what, pairs, e, gi, b):
+    """B2 on ``pairs`` timed beside its plain version, its bound and the
+    yardstick of one ``index_select`` x 2 + ``cat`` per field."""
+    from imitation_tpu_torch.ops import disc_assembly
+
+    fused = lambda: disc_assembly.assemble_fields(pairs, e, gi)
+    plain = lambda: [disc_assembly.assemble_rows_plain(d, gr, e, gi) for d, gr in pairs]
+    yardstick = lambda: [torch.cat([torch.index_select(d, 0, e), torch.index_select(gr, 0, gi)])
+                         for d, gr in pairs]  # one PyTorch call chain per field
+    row = dict(ms=cuda_ms(fused, reps=200), plain_ms=cuda_ms(plain, reps=100),
+               library_ms=cuda_ms(yardstick, reps=200),
+               device_ms=device_ms(fused, 50, "assemble_fields_kernel"),
+               library_device_ms=device_ms(yardstick, 50, ""),
+               bound_ms=b2_bytes(pairs, b) / HBM_BYTES_PER_S * 1e3, bytes=b2_bytes(pairs, b))
+    log(phase, f"assemble_fields {what} ({row['bytes']} bytes, grid {-(-2 * b // 128)} x 128): "
+               f"call {row['ms']:.4f} ms, device {row['device_ms']} ms, plain {row['plain_ms']:.4f} ms, "
+               f"{len(pairs)} x (index_select+index_select+cat) call {row['library_ms']:.4f} ms "
+               f"device {row['library_device_ms']} ms, bound {row['bound_ms']:.6f} ms")
+    return row
 
 
 def run_envs(torch, dev, n=1024, steps=200):
@@ -506,8 +543,12 @@ def expert_demos(torch, phase, env_name, num_envs, min_episodes, dev, **venv_kw)
 def train_rounds(torch, phase, trainer, rounds, fused=False):
     """``rounds`` rounds of ``train`` (or of ``train_fused`` with
     ``rounds_per_sync=rounds``) with the launch counts set to 0 just before
-    and read just after: GAE must launch once per round and B2 once per disc
-    step. Returns (launches, seconds per round)."""
+    and read just after: B2 must launch once per disc step, and GAE once per
+    round with a PPO generator and never with a SAC one. Returns (launches,
+    seconds per round)."""
+    from imitation_tpu_torch.rl.sac import SAC
+
+    sac = isinstance(trainer.gen_algo, SAC)
     round_ends = []
     torch.cuda.synchronize()
     zero_counts()
@@ -527,23 +568,27 @@ def train_rounds(torch, phase, trainer, rounds, fused=False):
         times = f"{', '.join(f'{x:.3f}' for x in per_round)} s per round"
     log(phase, f"{rounds} rounds of {'train_fused' if fused else 'train'} in {elapsed:.3f} s "
                f"({times}; {trainer.gen_train_timesteps} env steps each); launches {launches}")
+    gen_keys, losses = ((("critic_loss", "actor_loss", "alpha", "ep_return_mean"), ("critic_loss", "actor_loss"))
+                        if sac else (("loss", "ep_return_mean", "true_rew_mean", "relabeled_rew_mean"),
+                                     ("loss", "value_loss")))
     for row in trainer.logger.rows[-(1 if fused else rounds):]:
         log(phase, "logged: " + ", ".join(
-            f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
-                "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/true_rew_mean",
-                "mean/gen/relabeled_rew_mean", "mean/disc/disc_loss", "mean/disc/disc_acc",
-                "mean/disc/disc_acc_expert", "mean/disc/disc_acc_gen")))
-        bad = [k for k in ("mean/gen/loss", "mean/gen/value_loss", "mean/disc/disc_loss")
+            f"{k.split('/')[-1]} {row[k]:.4g}" for k in [f"mean/gen/{k}" for k in gen_keys] + [
+                "mean/disc/disc_loss", "mean/disc/disc_acc", "mean/disc/disc_acc_expert",
+                "mean/disc/disc_acc_gen"]))
+        bad = [k for k in [f"mean/gen/{k}" for k in losses] + ["mean/disc/disc_loss"]
                if not math.isfinite(row[k])]
         if bad:
             raise AssertionError(f"{phase}: non-finite losses: {bad}")
     params = list(trainer.policy.parameters()) + list(trainer.reward_net.parameters())
+    if sac:
+        params += list(trainer.gen_algo.critic.parameters())
     if not all(bool(torch.isfinite(p).all()) for p in params):
         raise AssertionError(f"{phase}: non-finite parameters after training")
-    if min(launches.values()) <= 0:
+    want = {"gae": 0 if sac else rounds, "assemble_rows": rounds * trainer.n_disc_updates_per_round}
+    if any(launches[k] <= 0 for k, n in want.items() if n):
         raise AssertionError(f"{phase}: a kernel of the path was not launched: {launches}")
-    want = {"gae": rounds, "assemble_rows": rounds * trainer.n_disc_updates_per_round}
-    if launches != want:  # GAE once per round, B2 once per disc step
+    if launches != want:  # B2 once per disc step; GAE once per PPO round
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
     return launches, elapsed / rounds
 
@@ -723,28 +768,34 @@ def demo_metrics(torch, bc, policy=None):
     return dict(zip(METRIC_NAMES, m.cpu().tolist()))
 
 
-def timed_epochs(torch, phase, bc, **train_kw):
-    """``bc.train(**train_kw)`` timed, with its host reads counted by the
-    trainer and, as a cross-check, the synchronizing CUDA calls that
-    ``torch.cuda``'s sync debug mode reports. Returns seconds."""
+def count_syncs(torch, fn):
+    """Runs ``fn()`` under ``torch.cuda``'s sync debug mode; returns its
+    result and the ``file:line`` of each synchronizing CUDA call it saw."""
     import warnings
 
-    epochs = train_kw["n_epochs"]
-    reads0, batches0 = bc.host_reads, bc.num_batches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            bc.train(**train_kw)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                 if "synchronizing" in str(w.message)]
+
+
+def timed_epochs(torch, phase, bc, **train_kw):
+    """``bc.train(**train_kw)`` timed, with its host reads counted by the
+    trainer and, as a cross-check, the synchronizing CUDA calls that
+    ``torch.cuda``'s sync debug mode reports. Returns seconds."""
+    epochs = train_kw["n_epochs"]
+    reads0, batches0 = bc.host_reads, bc.num_batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sites = count_syncs(torch, lambda: bc.train(**train_kw))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     steps, reads = bc.num_batches - batches0, bc.host_reads - reads0
-    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
-             if "synchronizing" in str(w.message)]
     log(phase, f"BC {epochs} epoch(s) at batch {bc.batch_size} (minibatch {bc.minibatch_size}): "
                f"{steps} steps in {secs:.3f} s = {secs / epochs:.3f} s per epoch, "
                f"{steps / secs:.1f} steps/s; host reads {reads} ({reads / epochs:g} per epoch); "
@@ -922,21 +973,18 @@ def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps):
     log(phase, f"return over 64 episodes before {ret0:.4g}, after {ret1:.4g}")
 
 
-def profile_round(torch, phase, trainer, s_per_round):
-    """One more round under torch.profiler. Splits it by the port's own
-    ``record_function`` ranges, named for the algorithm (``gail.disc_step``,
-    ``airl.disc_step``, ...): host time of each, and the device time of the
-    kernels that ran inside each range's device span. Busy share is kernel
-    time over an unprofiled round (``s_per_round``), since the profiler slows
-    the host loop down."""
+def profile_ranges(torch, fn, phases):
+    """``fn()`` under torch.profiler, split by the port's own
+    ``record_function`` ranges ``phases``: host microseconds of each, and
+    the count and device microseconds of the kernels that ran inside each
+    range's device span (None where the trace has no device spans). Returns
+    (host, device, {kernel: (count, us)}, wall seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    phases = ("ppo.collect", "ppo.process_chunk", f"{phase}.buffer_store", f"{phase}.disc_step",
-              f"{phase}.metrics_to_host")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(trainer.gen_train_timesteps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     host, spans, kernels = {p: 0.0 for p in phases}, [], []
@@ -948,16 +996,30 @@ def profile_round(torch, phase, trainer, s_per_round):
                 spans.append((e.time_range.start, e.time_range.end, e.name))
         elif e.device_type == DeviceType.CUDA:
             kernels.append((e.time_range.start, e.time_range.elapsed_us()))
-    dev = {p: 0.0 for p in phases}
+    dev = {p: [0, 0.0] for p in phases}
     for start, us in kernels:
         for lo, hi, name in spans:
             if lo <= start < hi:
-                dev[name] += us
+                dev[name][0] += 1
+                dev[name][1] += us
                 break
+    return host, dev if spans else None, kernel_times(prof), wall
+
+
+def profile_round(torch, phase, trainer, s_per_round):
+    """One more round under torch.profiler. Splits it by the port's own
+    ``record_function`` ranges, named for the algorithm (``gail.disc_step``,
+    ``airl.disc_step``, ...): host time of each, and the device time of the
+    kernels that ran inside each range's device span. Busy share is kernel
+    time over an unprofiled round (``s_per_round``), since the profiler slows
+    the host loop down."""
+    phases = ("ppo.collect", "ppo.process_chunk", f"{phase}.buffer_store", f"{phase}.disc_step",
+              f"{phase}.metrics_to_host")
+    host, dev, per_name, wall = profile_ranges(
+        torch, lambda: trainer.train(trainer.gen_train_timesteps), phases)
     log("profile", f"one {phase} round by phase (host ms / kernel ms): " + ", ".join(
-        f"{p} {host[p] / 1e3:.1f} / " + (f"{dev[p] / 1e3:.2f}" if spans else "not measured")
+        f"{p} {host[p] / 1e3:.1f} / " + (f"{dev[p][1] / 1e3:.2f}" if dev else "not measured")
         for p in phases))
-    per_name = kernel_times(prof)
     busy = sum(t for _, t in per_name.values()) / 1e6
     n = sum(c for c, _ in per_name.values())
     log("profile", f"{phase}: kernel time {busy:.4f} s, {n} kernels = {100 * busy / s_per_round:.1f}% "
@@ -965,6 +1027,202 @@ def profile_round(torch, phase, trainer, s_per_round):
                    f"{wall:.3f} s ({wall / s_per_round:.2f}x)")
     for name, (count, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log("profile", f"  {us / 1e3:9.3f} ms  x{count:<6} {name[:90]}")
+
+
+def finite_metrics(torch, phase, metrics, keys):
+    """Reads ``metrics`` (device tensors) once and raises on a non-finite ``keys`` entry."""
+    from imitation_tpu_torch.rl.common import metrics_to_host
+
+    host = {k: float(v) for k, v in metrics_to_host(metrics).items()}
+    bad = [k for k in keys if not math.isfinite(host[k])]
+    if bad:
+        raise AssertionError(f"{phase}: non-finite {bad}: {host}")
+    return host
+
+
+def run_sac(torch, dev, num_envs=16, masked_rounds=10, rounds=6):
+    """``SAC.learn`` on device Pendulum-v1 at the expert-training settings
+    (benchmarking/train_experts.py:200-212, the PEBBLE generator of
+    benchmarking/run_rlhf.py:69): 16 envs, train_freq 16, 256 gradient steps
+    of batch 256 a round, (256, 256) actor and critics, lr 3e-4;
+    ``learning_starts`` cut from 10,000 to 2,560, so ``masked_rounds``
+    rounds store 2,560 rows with masked updates before ``rounds`` rounds
+    learn (4,096 rows in all). The learning rounds run with the CUDA sync debug mode on and
+    must make no host read (nothing is logged)."""
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+
+    phase = "sac_pendulum"
+    venv = make_vec_env("Pendulum-v1", num_envs=num_envs, device=dev)
+    rows = 16 * num_envs
+    cfg = SACConfig(train_freq=16, gradient_steps=256, batch_size=256,
+                    learning_starts=masked_rounds * rows, learning_rate=3e-4)
+    sac = SAC(venv, cfg, seed=0)
+    state = sac.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sac.learn(state, masked_rounds * rows)
+    torch.cuda.synchronize()
+    masked_s = (time.perf_counter() - t0) / masked_rounds
+    if state.buffer_state.size != cfg.learning_starts or state.actor_opt.count != masked_rounds * 256:
+        raise AssertionError(f"{phase}: {state.buffer_state.size} rows and {state.actor_opt.count} "
+                             f"masked updates before learning")
+    metrics = []
+    t0 = time.perf_counter()
+    state, sites = count_syncs(torch, lambda: sac.learn(state, rounds * rows,
+                                                        callback=lambda s, m: metrics.append(m)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_updates = rounds * cfg.gradient_steps
+    log(phase, f"{masked_rounds} masked rounds (losses only, no gradients) {masked_s:.3f} s each; "
+               f"{rounds} learning rounds in {secs:.3f} s = {secs / rounds:.3f} s per round, "
+               f"{n_updates / secs:.1f} updates/s, {rounds * rows / secs:.1f} env steps/s; "
+               f"host reads {len(sites)} ({len(sites) / rounds:g} per round) at {sorted(set(sites))}")
+    if sites:
+        raise AssertionError(f"{phase}: SAC.learn read the device {len(sites)} times without logging")
+    for i, m in enumerate(metrics):
+        host = finite_metrics(torch, phase, m, ("critic_loss", "actor_loss", "alpha", "q_mean", "entropy"))
+        log(phase, f"round {masked_rounds + i + 1}: " + ", ".join(
+            f"{k} {host[k]:.4g}" for k in ("critic_loss", "actor_loss", "alpha", "q_mean", "entropy",
+                                           "ep_return_mean", "buffer_size")))
+    params = [*sac.actor.parameters(), *sac.critic.parameters(), *sac.target_critic.parameters()]
+    if not all(bool(torch.isfinite(p).all()) for p in params):
+        raise AssertionError(f"{phase}: non-finite parameters after training")
+
+    # The actor's forward on the card against a CPU copy, on 4096 replay rows.
+    obs = state.buffer_state.data.obs[:min(4096, state.buffer_state.size)]
+    cpu_actor = copy.deepcopy(sac.actor).cpu()
+    with torch.no_grad():
+        got, want = sac.actor(obs), cpu_actor(obs.cpu())
+    err = max((got.mean.cpu() - want.mean).abs().max().item(),
+              (got.log_std.cpu() - want.log_std).abs().max().item())
+    log("reference", f"{phase} actor GPU vs CPU forward on {obs.shape[0]} replay rows: "
+                     f"max abs diff of mean and log_std {err:.3g}")
+    if err > 1e-4:
+        raise AssertionError(f"{phase}: the actor's forward on the card disagrees with the CPU's")
+
+    # One more round under torch.profiler, split by the port's ranges.
+    held = [state]
+
+    def one_round():
+        held[0] = sac.train_step(held[0])[0]
+
+    phases = ("sac.collect", "sac.buffer_store", "sac.update")
+    host, dev_t, per_name, wall = profile_ranges(torch, one_round, phases)
+    log("profile", f"one {phase} round by range (host ms / kernels / kernel ms): " + ", ".join(
+        f"{p} {host[p] / 1e3:.1f} / " + (f"{dev_t[p][0]} / {dev_t[p][1] / 1e3:.2f}" if dev_t else "not measured")
+        for p in phases))
+    busy = sum(t for _, t in per_name.values()) / 1e6
+    n = sum(c for c, _ in per_name.values())
+    if dev_t:
+        per_update = dev_t["sac.update"]
+        log("profile", f"{phase}: one update = {per_update[0] / cfg.gradient_steps:.1f} kernels, "
+                       f"{per_update[1] / cfg.gradient_steps:.1f} us of kernel time, "
+                       f"{host['sac.update'] / cfg.gradient_steps:.1f} us of host time (profiled)")
+    log("profile", f"{phase}: round kernel time {busy:.4f} s in {n} kernels = "
+                   f"{100 * busy / (secs / rounds):.1f}% of an unprofiled round ({secs / rounds:.3f} s); "
+                   f"profiled {wall:.3f} s")
+    for name, (count, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        log("profile", f"  {us / 1e3:9.3f} ms  x{count:<6} {name[:90]}")
+
+
+def run_sqil(torch, dev, env_name, phase, steps, n_demos, config_kw):
+    """``SQIL.train`` on 8 device envs of ``env_name`` with scripted-expert
+    demos (the learner ``auto`` picks: DQN on CartPole, SAC on Pendulum);
+    returns over 64 episodes before and after (not asserted)."""
+    from imitation_tpu_torch.algorithms.sqil import SQIL
+    from imitation_tpu_torch.envs import make_vec_env
+
+    demos, _ = expert_demos(torch, phase, env_name, 8, n_demos, dev)
+    venv = make_vec_env(env_name, num_envs=8, device=dev)
+    eval_venv = make_vec_env(env_name, num_envs=64, device=dev)
+    sqil = SQIL(venv=venv, demonstrations=demos[:n_demos], allow_variable_horizon=True,
+                custom_logger=make_logger(), seed=0, **config_kw)
+    ret0 = eval_returns(torch, sqil.policy, eval_venv, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sites = count_syncs(torch, lambda: sqil.train(total_timesteps=steps))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = sqil.state
+    log(phase, f"SQIL ({sqil.rl_algo_name}) {st.timesteps} env steps, {st.n_updates} updates in {secs:.3f} s: "
+               f"{st.timesteps / secs:.1f} steps/s, {st.n_updates / secs:.1f} updates/s; "
+               f"{sqil._expert_batch.batch_size} expert rows; host reads {len(sites)}")
+    # One more step, its metrics read once.
+    sqil.state, metrics = sqil.rl.train_step(sqil.state)[:2]
+    losses = ("loss",) if sqil.rl_algo_name == "dqn" else ("critic_loss", "actor_loss")
+    host = finite_metrics(torch, phase, metrics, losses)
+    log(phase, "metrics of one more step: " + ", ".join(f"{k} {v:.4g}" for k, v in host.items()))
+    # SQIL's mixed sample on the card: batch // 2 fresh rows labelled 0,
+    # then expert rows labelled 1.
+    size = sqil.rl.config.batch_size
+    batch = sqil.sample_hook(sqil.rl.replay, sqil.state.buffer_state,
+                             torch.Generator(device=dev).manual_seed(3), size)
+    rews, half = batch.rews.cpu(), size // 2
+    log(phase, f"sampled batch of {size}: {int((rews == 0).sum())} rows labelled 0 "
+               f"then {int((rews == 1).sum())} labelled 1")
+    if not (batch.batch_size == size and (rews[:half] == 0).all() and (rews[half:] == 1).all()):
+        raise AssertionError(f"{phase}: the sampled batch is not half fresh zeros then half expert ones")
+    ret1 = eval_returns(torch, sqil.policy, eval_venv, seed=2)
+    log(phase, f"return over 64 episodes before {ret0:.4g}, after {ret1:.4g}")
+
+
+def run_adversarial_sac(torch, dev):
+    """AIRL and GAIL with a SAC generator on device Pendulum-v1 at the JAX
+    CLI's ``train_adversarial airl|gail with sac env_name=Pendulum-v1``
+    (imitation_tpu/scripts/train_adversarial.py:21-57, 87-99): 8 envs,
+    train_freq 256 (the CLI's n_steps), SAC batch 64, learning_starts 100, lr
+    3e-4, one gradient step a round, demo batch 1024, 4 disc updates, 10
+    scripted expert episodes. AIRL: 2 rounds of ``train``, then 2 of
+    ``train_fused`` on a fresh trainer; GAIL: 1 round of ``train``. Then B2
+    on the AIRL trainer's own demo store and replay ring, held exactly
+    against its plain version and timed."""
+    from imitation_tpu_torch.algorithms.adversarial.airl import AIRL
+    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.ops import disc_assembly
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+
+    demos, _ = expert_demos(torch, "airl_sac", "Pendulum-v1", 8, 10, dev)
+
+    def make(cls):
+        venv = make_vec_env("Pendulum-v1", num_envs=8, device=dev)
+        sac = SAC(venv, SACConfig(learning_rate=3e-4, train_freq=256, batch_size=64, learning_starts=100),
+                  seed=0)
+        return cls(demonstrations=demos[:10], demo_batch_size=1024, venv=venv, gen_algo=sac,
+                   n_disc_updates_per_round=4, custom_logger=make_logger(), seed=0)
+
+    launches = {}
+    airl = make(AIRL)
+    launches["airl_sac"], s_airl = train_rounds(torch, "airl_sac", airl, 2)
+    launches["airl_sac_fused"], s_fused = train_rounds(torch, "airl_sac", make(AIRL), 2, fused=True)
+    launches["gail_sac"], s_gail = train_rounds(torch, "gail_sac", make(GAIL), 1)
+    log("airl_sac", f"{s_airl:.3f} s per round (train), {s_fused:.3f} (train_fused); "
+                    f"gail_sac {s_gail:.3f} s per round; SAC replay {airl.gen_state.buffer_state.size} rows, "
+                    f"the trainer's ring {airl._gen_buffer_state.size}")
+
+    demo, ring = airl._demo_store.batch, airl._gen_buffer_state.data
+    pairs = [(getattr(demo, f), getattr(ring, f)) for f in ("obs", "acts", "next_obs", "dones")]
+    g = torch.Generator(device=dev).manual_seed(2)
+    b = airl.demo_batch_size
+    e = torch.randint(0, demo.batch_size, (b,), generator=g, device=dev, dtype=torch.int32)
+    gi = torch.randint(0, airl._gen_buffer_state.size, (b,), generator=g, device=dev, dtype=torch.int32)
+    for out, (d, gr) in zip(disc_assembly.assemble_fields(pairs, e, gi), pairs):
+        if not torch.equal(out, disc_assembly.assemble_rows_plain(d, gr, e, gi)):
+            raise AssertionError("airl_sac: B2 disagrees with its plain version on the path's fields")
+    shape = (f"demo [{demo.batch_size}], SAC-generator ring [{airl._gen_buffer_state.size}], B={b}; "
+             + ", ".join(f"{f} {list(x.shape[1:])} {str(x.dtype).split('.')[-1]}"
+                         for f, x in zip(("obs", "acts", "next_obs", "dones"), (d for d, _ in pairs))))
+    log("airl_sac", f"assemble_fields on the path's own fields ({shape}): exact")
+    row = time_b2(torch, "airl_sac", "at the SAC-generator disc step (4 fields)", pairs, e, gi, b)
+    # The same shapes from fresh random tensors, as the kernels phase makes
+    # them, timed here too: separates the fields' layout from the card's
+    # state at this point of the script.
+    synthetic = [(torch.randn_like(d), torch.randn_like(gr)) for d, gr in pairs]
+    fresh = time_b2(torch, "airl_sac", "on fresh random fields of the same shapes", synthetic, e, gi, b)
+    return launches, dict(row, shape=shape, max_abs_err=0.0, synthetic_device_ms=fresh["device_ms"],
+                          synthetic_ms=fresh["ms"])
+
 
 
 def main() -> int:
@@ -1019,6 +1277,8 @@ def main() -> int:
     # BC and DAgger launch neither kernel: their learner steps are eager
     # PyTorch, as the JAX package computes them outside any Pallas kernel.
     from imitation_tpu_torch.algorithms import dagger
+    from imitation_tpu_torch.rl.dqn import DQNConfig
+    from imitation_tpu_torch.rl.sac import SACConfig
 
     for phase, fn in (
         ("bc_cartpole", lambda: run_bc(
@@ -1037,6 +1297,30 @@ def main() -> int:
         zero_counts()
         fn()
         log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+
+    # Off-policy learners and SQIL launch neither kernel (eager PyTorch, as
+    # the JAX package computes them outside any Pallas kernel).
+    for phase, fn in (
+        ("sac_pendulum", lambda: run_sac(torch, dev)),
+        ("sqil_cartpole", lambda: run_sqil(
+            torch, dev, "CartPole-v1", "sqil_cartpole", 20_000, 10,
+            dict(dqn_config=DQNConfig(learning_starts=500, train_freq=4, batch_size=64, gradient_steps=4,
+                                      learning_rate=1e-4, target_update_interval=2000,
+                                      exploration_fraction=0.3, exploration_final_eps=0.05)))),
+        ("sqil_pendulum", lambda: run_sqil(
+            torch, dev, "Pendulum-v1", "sqil_pendulum", 3_000, 10,
+            dict(sac_config=SACConfig(learning_starts=500, batch_size=64, learning_rate=3e-4)))),
+    ):
+        t0 = time.perf_counter()
+        zero_counts()
+        fn()
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+
+    t0 = time.perf_counter()
+    launches, b2_sac = run_adversarial_sac(torch, dev)
+    paths.update(launches)
+    next(e for e in entries if e["name"] == "assemble_rows")["sac_disc_step"] = b2_sac
+    log("airl_sac", f"done in {time.perf_counter() - t0:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

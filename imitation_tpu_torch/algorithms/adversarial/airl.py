@@ -26,7 +26,8 @@ from imitation_tpu_torch.rl import common as rl_common
 
 
 class AIRL(common.AdversarialTrainer):
-    """AIRL with a PPO generator; the reward net defaults to BasicShapedRewardNet."""
+    """AIRL with a PPO or SAC generator; the reward net defaults to
+    BasicShapedRewardNet."""
 
     def __init__(self, *, reward_net: Optional[RewardNet] = None, venv=None, **kwargs):
         if reward_net is None:

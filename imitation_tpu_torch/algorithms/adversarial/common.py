@@ -1,15 +1,21 @@
 """Adversarial imitation learning core (the GAIL/AIRL common loop).
 
-Port of ``imitation_tpu/algorithms/adversarial/common.py`` for a PPO
-generator on device envs. The training loop alternates:
+Port of ``imitation_tpu/algorithms/adversarial/common.py`` for a PPO or
+SAC generator on device envs. The training loop alternates:
 
     for each round (total_timesteps // gen_train_timesteps):
-        train_gen:  the generator PPO trains on rewards relabelled by the
+        train_gen:  the generator trains on rewards relabelled by the
                     CURRENT reward net; the fresh rollout transitions replace
                     the generator replay buffer's rows
         train_disc x n_disc_updates_per_round:
                     a binary-cross-entropy discriminator step on an equal
                     mix of expert and generator rows
+
+A PPO generator relabels its rollout chunk before GAE. A SAC generator
+relabels each batch it samples from its own replay ring (``relabel_fn``), so
+old rows always carry the current reward, and returns its fresh transitions
+for the trainer's ring; AIRL's log pi(a|s) then comes from
+``SAC.log_prob_fn``.
 
 Each discriminator step builds its ``[expert; gen]`` batch with the
 hand-written CUDA kernel B2 (``ops.disc_assembly.assemble_fields``), one
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +56,7 @@ from imitation_tpu_torch.ops.disc_assembly import assemble_fields
 from imitation_tpu_torch.rewards.reward_nets import RewardNet
 from imitation_tpu_torch.rl import common as rl_common
 from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+from imitation_tpu_torch.rl.sac import SAC, SACPolicy
 from imitation_tpu_torch.util.logger import HierarchicalLogger
 
 
@@ -124,7 +131,8 @@ class DiscState:
 
 
 class AdversarialTrainer(base.DemonstrationAlgorithm):
-    """Base class for adversarial imitation with a PPO generator."""
+    """Base class for adversarial imitation with a PPO or SAC generator
+    (``gen_algo``; a PPO of ``policy`` and ``gen_config`` when it is None)."""
 
     def __init__(
         self,
@@ -132,7 +140,7 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         demonstrations: base.AnyDemonstrations,
         demo_batch_size: int,
         venv: VectorEnv,
-        gen_algo: Optional[PPO] = None,
+        gen_algo: Optional[Union[PPO, SAC]] = None,
         reward_net: RewardNet = None,
         policy: Optional[ActorCriticPolicy] = None,
         gen_config: Optional[PPOConfig] = None,
@@ -160,7 +168,8 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             allow_variable_horizon=allow_variable_horizon,
         )
 
-        # Generator: PPO with the learned-reward relabel fused in.
+        # Generator: PPO relabels its chunk with the learned reward; an
+        # off-policy SAC relabels every batch it samples from its replay.
         if gen_algo is None:
             policy = policy or ActorCriticPolicy(venv.observation_space, venv.action_space)
             gen_algo = PPO(
@@ -171,13 +180,24 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
                 return_transitions=True,
                 seed=seed,
             )
+        elif isinstance(gen_algo, SAC):
+            def _relabel_batch(reward_params, batch: types.TransitionBatch) -> types.TransitionBatch:
+                rews = self._reward_train_relabel_fn(
+                    reward_params, batch.obs, batch.acts, batch.next_obs, batch.dones
+                )
+                return dataclasses.replace(batch, rews=rews)
+
+            gen_algo.relabel_fn = _relabel_batch
+            gen_algo.return_transitions = True
         else:
             gen_algo.reward_fn = self._reward_train_relabel_fn
             gen_algo.return_transitions = True
         self.gen_algo = gen_algo
 
-        # One generator round produces n_steps * num_envs transitions.
-        self._gen_steps_per_iter = gen_algo.config.n_steps * venv.num_envs
+        # One generator round produces n_steps (PPO) or train_freq (SAC)
+        # steps of every env.
+        cfg = gen_algo.config
+        self._gen_steps_per_iter = (getattr(cfg, "n_steps", None) or cfg.train_freq) * venv.num_envs
         if gen_train_timesteps is None:
             gen_train_timesteps = self._gen_steps_per_iter
         self.gen_train_timesteps = gen_train_timesteps
@@ -213,7 +233,7 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             )
 
     @property
-    def policy(self) -> ActorCriticPolicy:
+    def policy(self) -> Union[ActorCriticPolicy, SACPolicy]:
         return self.gen_algo.policy
 
     # -- subclass contract -------------------------------------------------
@@ -245,7 +265,7 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         self,
         disc_state: DiscState,
         gen_buffer_state: BufferState,
-        policy: ActorCriticPolicy,
+        policy: Union[ActorCriticPolicy, SACPolicy],
         demo_batch: types.TransitionBatch,
     ) -> Tuple[DiscState, Dict[str, torch.Tensor]]:
         """One BCE discriminator update on expert+gen half-batches.
@@ -254,9 +274,10 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         over ``[expert_mb; gen_mb]`` slices with the loss scaled by
         ``mb / demo_batch_size``, and one optimizer step is taken at the end.
         Where ``needs_policy_log_prob`` (AIRL), log pi(a|s) under ``policy``
-        is computed once on the whole ``[2B]`` batch, with no gradient and
-        without folding the policy's normalizer stats, and split into
-        minibatches like the other fields.
+        (a SAC generator's: ``SAC.log_prob_fn``, the rescale's Jacobian
+        included) is computed once on the whole ``[2B]`` batch, with no
+        gradient and without folding the policy's normalizer stats, and
+        split into minibatches like the other fields.
         """
         B = self.demo_batch_size
         mb = self.demo_minibatch_size
@@ -274,11 +295,12 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         log_prob = None
         if self.needs_policy_log_prob:
             with torch.no_grad():
-                dist, _ = policy.dist_and_value(obs)
-                if policy.action_space.is_discrete:
-                    log_prob = dist.log_prob(acts)
+                if isinstance(self.gen_algo, SAC):
+                    log_prob = self.gen_algo.log_prob_fn()(obs, acts)
                 else:
-                    log_prob = dist.log_prob(acts.reshape(acts.shape[0], -1))
+                    dist, _ = policy.dist_and_value(obs)
+                    log_prob = dist.log_prob(acts if policy.action_space.is_discrete
+                                             else acts.reshape(acts.shape[0], -1))
 
         def to_mb(x):
             # [2B, ...] with expert rows first -> [k, 2*mb, ...]
@@ -349,20 +371,24 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         stacked = {k: torch.stack([s[k] for s in all_stats]) for k in all_stats[0]}
         return stacked if not sync else rl_common.metrics_to_host(stacked)
 
-    def _current_policy(self) -> ActorCriticPolicy:
+    def _current_policy(self) -> Union[ActorCriticPolicy, SACPolicy]:
         if self.gen_state is None:
             self.gen_state = self.gen_algo.init_state()
         return self.policy
 
     # -- generator warm start ----------------------------------------------
     def warm_start_generator(self, state_dict: Mapping[str, torch.Tensor]) -> None:
-        """Loads pre-trained policy weights (a policy ``state_dict``, e.g. from
-        ``convert.policy_state_dict``) into the generator before training.
-        The optimizer's moments are kept, as the JAX package keeps its
-        ``opt_state``."""
+        """Loads pre-trained policy weights into the generator before
+        training: a policy ``state_dict`` (e.g. ``convert.policy_state_dict``)
+        for PPO, an actor's (``convert.sac_actor_state_dict``) for SAC, whose
+        critics are kept. The optimizers' moments are kept, as the JAX
+        package keeps its ``opt_state``."""
         if self.gen_state is None:
             self.gen_state = self.gen_algo.init_state()
-        self.policy.load_state_dict(state_dict)
+        if isinstance(self.gen_algo, SAC):
+            self.gen_algo.actor.load_state_dict(state_dict)
+        else:
+            self.policy.load_state_dict(state_dict)
 
     # -- generator step ----------------------------------------------------
     def train_gen(self, total_timesteps: Optional[int] = None, sync: bool = True) -> Mapping[str, Any]:
@@ -378,7 +404,10 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
                 self.gen_state, self.reward_net
             )
             with record_function(f"{self._range}.buffer_store"):
-                transitions = chunk_to_transitions(chunk)
+                if isinstance(chunk, types.TransitionBatch):
+                    transitions = chunk  # an off-policy generator returns these directly
+                else:
+                    transitions = chunk_to_transitions(chunk)
                 if self._gen_buffer_state is None:
                     self._gen_buffer_state = self._gen_replay_buffer.init_state(transitions)
                 self._gen_buffer_state = self._gen_replay_buffer.store(

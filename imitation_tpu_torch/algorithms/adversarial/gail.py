@@ -20,7 +20,7 @@ from imitation_tpu_torch.rl import common as rl_common
 
 
 class GAIL(common.AdversarialTrainer):
-    """GAIL with a PPO generator; the reward net defaults to BasicRewardNet."""
+    """GAIL with a PPO or SAC generator; the reward net defaults to BasicRewardNet."""
 
     def __init__(self, *, reward_net: Optional[RewardNet] = None, venv=None, **kwargs):
         if reward_net is None:

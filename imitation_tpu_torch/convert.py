@@ -50,3 +50,21 @@ def reward_net_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tenso
     ``potential.mlp.*``, the flax submodule names.
     """
     return flax_to_state_dict(variables)
+
+
+def sac_actor_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``SACActor`` variables -> ``rl.sac.SACActor`` state_dict (``dense{i}``,
+    ``mean``, ``log_std``)."""
+    return flax_to_state_dict(variables)
+
+
+def sac_critic_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``SACCritic`` variables -> ``rl.sac.SACCritic`` state_dict (the twin
+    heads ``q{q}_dense{i}``, ``q{q}_out``); a target critic loads the same."""
+    return flax_to_state_dict(variables)
+
+
+def q_network_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``QNetwork`` variables -> ``rl.dqn.QNetwork`` state_dict (``dense{i}``,
+    ``q_out``)."""
+    return flax_to_state_dict(variables)

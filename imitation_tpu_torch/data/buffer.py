@@ -66,10 +66,15 @@ class ReplayBuffer:
                 "Cannot sample from an empty replay buffer; store transitions "
                 "first (e.g. call train_gen())."
             )
-        return torch.randint(
-            0, state.size, (n,), generator=generator, device=generator.device, dtype=torch.int32
-        )
+        return _uniform_indices(state.size, n, generator)
 
     def sample(self, state: BufferState, n: int, generator: torch.Generator) -> TransitionBatch:
         """Uniform with-replacement sample of ``n`` stored rows."""
         return state.data.take(self.sample_indices(state, n, generator))
+
+
+def _uniform_indices(high: int, n: int, generator: torch.Generator) -> torch.Tensor:
+    """``n`` uniform draws from ``[0, high)``, ``[n]`` int32 on the
+    generator's device: every replay sample (tests substitute the JAX
+    package's draws)."""
+    return torch.randint(0, high, (n,), generator=generator, device=generator.device, dtype=torch.int32)

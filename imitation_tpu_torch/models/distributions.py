@@ -1,8 +1,9 @@
-"""Action distributions: Categorical and DiagGaussian.
+"""Action distributions: Categorical, DiagGaussian and SquashedGaussian.
 
 Port of ``imitation_tpu/models/distributions.py``. Sampling takes an explicit
 ``torch.Generator``; it does not reproduce ``jax.random``'s bits, so tests
-compare log-probabilities and entropies, not samples.
+compare log-probabilities and entropies, not samples, or feed the JAX
+package's noise to ``SquashedGaussian`` through ``_standard_normal``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ import torch
 import torch.nn.functional as F
 
 _LOG_2PI = math.log(2.0 * math.pi)
+_LOG_2 = math.log(2.0)
+
+
+def _standard_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard-normal noise of a squashed-Gaussian sample, on the
+    generator's device (tests substitute the JAX package's draws)."""
+    return torch.randn(shape, generator=generator, device=generator.device)
 
 
 @dataclasses.dataclass
@@ -79,3 +87,40 @@ class DiagGaussian:
     def entropy(self) -> torch.Tensor:
         lstd = self._lstd()
         return (0.5 * (1.0 + _LOG_2PI) + lstd).sum(dim=-1)
+
+
+def _tanh_log_det(pre: torch.Tensor) -> torch.Tensor:
+    """log|d tanh/dx| = log(1 - tanh^2 x) = 2*(log2 - x - softplus(-2x)),
+    summed over the action axis (the numerically stable form)."""
+    return (2.0 * (_LOG_2 - pre - F.softplus(-2.0 * pre))).sum(dim=-1)
+
+
+@dataclasses.dataclass
+class SquashedGaussian:
+    """tanh-squashed diagonal Gaussian (SAC); actions in (-1, 1)."""
+
+    mean: torch.Tensor  # [..., d]
+    log_std: torch.Tensor  # [..., d]
+
+    def sample_and_log_prob(self, generator: torch.Generator):
+        """(tanh(mean + eps*std), log-prob): the base log-prob taken from
+        the noise ``eps``, less the tanh correction."""
+        lstd = self.log_std.expand_as(self.mean)
+        eps = _standard_normal(tuple(self.mean.shape), generator)
+        pre = self.mean + eps * torch.exp(lstd)
+        base_lp = (-0.5 * (eps * eps + _LOG_2PI) - lstd).sum(dim=-1)
+        return torch.tanh(pre), base_lp - _tanh_log_det(pre)
+
+    def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
+        """Log-prob of squashed actions, clipped to +-(1 - 1e-6) first."""
+        pre = torch.atanh(torch.clamp(actions, -1.0 + 1e-6, 1.0 - 1e-6))
+        lstd = self.log_std.expand_as(self.mean)
+        z = (pre - self.mean) * torch.exp(-lstd)
+        base_lp = (-0.5 * (z * z + _LOG_2PI) - lstd).sum(dim=-1)
+        return base_lp - _tanh_log_det(pre)
+
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.mean)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_and_log_prob(generator)[0]

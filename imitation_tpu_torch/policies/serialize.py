@@ -1,19 +1,19 @@
 """Policy save/load and the policy-type registry.
 
-Port of ``imitation_tpu/policies/serialize.py`` for actor-critic policies. A
-saved policy is a directory holding ``policy_config.json``, with the same
-schema and values the JAX package writes (architecture and spaces), and
+Port of ``imitation_tpu/policies/serialize.py`` for actor-critic policies
+and SAC actors (``rl.sac.SACPolicy``, policy type ``sac_actor``). A saved
+policy is a directory holding ``policy_config.json``, with the same schema
+and values the JAX package writes (architecture and spaces), and
 ``policy.pt``, a ``torch.save`` of the module's ``state_dict`` with tensors
-on the CPU. Reading the JAX package's ``variables.msgpack`` and the SAC actor
-are not ported. ``load_policy`` looks loaders up by type: ``random``, ``zero``
-and ``saved``.
+on the CPU. Reading the JAX package's ``variables.msgpack`` is not ported.
+``load_policy`` looks loaders up by type: ``random``, ``zero`` and ``saved``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -22,6 +22,9 @@ from imitation_tpu_torch import Device, default_device
 from imitation_tpu_torch.envs.base import Space
 from imitation_tpu_torch.envs.vector import VectorEnv
 from imitation_tpu_torch.models.policies import ActorCriticPolicy, RandomPolicy, ZeroPolicy
+from imitation_tpu_torch.rl.sac import SACPolicy
+
+SavedPolicy = Union[ActorCriticPolicy, SACPolicy]
 
 POLICY_CONFIG = "policy_config.json"
 POLICY_WEIGHTS = "policy.pt"
@@ -52,10 +55,18 @@ def _space_from_json(d: Dict[str, Any]) -> Space:
     )
 
 
-def policy_config(policy: ActorCriticPolicy) -> Dict[str, Any]:
-    """The ``policy_config.json`` contents of an actor-critic policy."""
+def policy_config(policy: SavedPolicy) -> Dict[str, Any]:
+    """The ``policy_config.json`` contents of an actor-critic policy or a
+    SAC actor."""
+    if isinstance(policy, SACPolicy):
+        return {
+            "policy_type": "sac_actor",
+            "observation_space": _space_to_json(policy.observation_space),
+            "action_space": _space_to_json(policy.action_space),
+            "hid_sizes": list(policy.hid_sizes),
+        }
     if not isinstance(policy, ActorCriticPolicy):
-        raise TypeError(f"only ActorCriticPolicy is saved, not {type(policy).__name__}")
+        raise TypeError(f"only ActorCriticPolicy and SACPolicy are saved, not {type(policy).__name__}")
     net = policy.net
     act_name = next((k for k, f in ACTIVATIONS.items() if f is net.activation), None)
     if act_name is None:
@@ -72,8 +83,14 @@ def policy_config(policy: ActorCriticPolicy) -> Dict[str, Any]:
     }
 
 
-def policy_from_config(config: Dict[str, Any]) -> ActorCriticPolicy:
+def policy_from_config(config: Dict[str, Any]) -> SavedPolicy:
     """An (uninitialised) policy of the architecture ``config`` describes."""
+    if config["policy_type"] == "sac_actor":
+        return SACPolicy(
+            observation_space=_space_from_json(config["observation_space"]),
+            action_space=_space_from_json(config["action_space"]),
+            hid_sizes=tuple(config["hid_sizes"]),
+        )
     if config["policy_type"] != "actor_critic":
         raise ValueError(f"policy_type {config['policy_type']!r} is not loaded by the port")
     if config.get("features", "flatten") != "flatten":
@@ -88,7 +105,7 @@ def policy_from_config(config: Dict[str, Any]) -> ActorCriticPolicy:
     )
 
 
-def save_policy(path: str, policy: ActorCriticPolicy) -> None:
+def save_policy(path: str, policy: SavedPolicy) -> None:
     """Saves the policy's architecture and weights to the directory ``path``."""
     config = policy_config(policy)
     os.makedirs(path, exist_ok=True)
@@ -98,7 +115,7 @@ def save_policy(path: str, policy: ActorCriticPolicy) -> None:
     torch.save(state, os.path.join(path, POLICY_WEIGHTS))
 
 
-def load_policy_from_path(path: str, device: Optional[Device] = None) -> ActorCriticPolicy:
+def load_policy_from_path(path: str, device: Optional[Device] = None) -> SavedPolicy:
     """Loads a policy ``save_policy`` wrote, onto ``device`` (CUDA unless
     the caller says ``"cpu"``)."""
     dev = default_device(device)
@@ -117,7 +134,7 @@ def _load_zero(venv: VectorEnv, **kwargs) -> ZeroPolicy:
     return ZeroPolicy(venv.observation_space, venv.action_space)
 
 
-def _load_saved(venv: VectorEnv, path: str, **kwargs) -> ActorCriticPolicy:
+def _load_saved(venv: VectorEnv, path: str, **kwargs) -> SavedPolicy:
     policy = load_policy_from_path(path, device=venv.device)
     if policy.observation_space.shape != venv.observation_space.shape:
         raise ValueError(

@@ -148,6 +148,19 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_add_(params, upd)
         return norm
 
+    def step_masked(self) -> None:
+        """An update whose gradients are all masked to zero, as optax applies
+        one: the count advances, and the parameters move only by moments
+        that earlier steps left (none before the first real step, so then
+        nothing is computed)."""
+        (group,) = self.param_groups
+        if any(self.state[p] for p in group["params"]):
+            for p in group["params"]:
+                p.grad = None  # step() reads a missing gradient as zeros
+            self.step()
+        else:
+            self.count += 1
+
     def state_dict(self) -> Dict[str, Any]:
         """``torch.optim.Optimizer.state_dict`` plus the update count."""
         state = super().state_dict()

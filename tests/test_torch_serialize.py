@@ -6,7 +6,7 @@ loads in the other with equal arrays (exactly; rewards come back float64).
 The JAX package's ``save`` writes the HuggingFace format when ``datasets``
 is installed, so its ``.npz`` writer ``_save_npz`` is called directly.
 Policies: ``policy_config.json`` equals the JAX package's for the same
-policy, and the weights round-trip exactly.
+policy (actor-critic or SAC actor), and the weights round-trip exactly.
 """
 
 import json
@@ -21,10 +21,13 @@ from imitation_tpu.data import serialize as jax_serialize
 from imitation_tpu.data import types as jax_types
 from imitation_tpu.models.policies import ActorCriticPolicy as JaxPolicy
 from imitation_tpu.policies import serialize as jax_policy_serialize
+from imitation_tpu.rl.sac import SACPolicy as JaxSACPolicy
 from imitation_tpu_torch.data import serialize, types
 from imitation_tpu_torch.envs import make_vec_env
 from imitation_tpu_torch.models.policies import ActorCriticPolicy, RandomPolicy, ZeroPolicy
+from imitation_tpu_torch import convert
 from imitation_tpu_torch.policies import serialize as policy_serialize
+from imitation_tpu_torch.rl.sac import SACPolicy
 from tests.torch_parity import spaces
 
 torch.set_num_threads(1)
@@ -145,3 +148,37 @@ def test_load_policy_defaults_to_cuda(tmp_path):
     policy_serialize.save_policy(str(tmp_path / "p"), ActorCriticPolicy(tobs, tact))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         policy_serialize.load_policy_from_path(str(tmp_path / "p"))
+
+
+def test_sac_actor_config_matches_jax_and_round_trips(tmp_path):
+    """The ``sac_actor`` type: the same ``policy_config.json`` as the JAX
+    package's for the same policy; save -> load gives back the weights and
+    the env-scaled actions."""
+    jobs, jact, tobs, tact = spaces("continuous")
+    jpol = JaxSACPolicy(jobs, jact, hid_sizes=(16, 8))
+    jvars = jpol.init_variables(jax.random.key(0))
+    jax_policy_serialize.save_policy(str(tmp_path / "j"), jpol, jvars)
+    pol = SACPolicy(tobs, tact, hid_sizes=(16, 8))
+    pol.actor.load_state_dict(convert.sac_actor_state_dict(jax.device_get(jvars)))
+    policy_serialize.save_policy(str(tmp_path / "t"), pol)
+    with open(tmp_path / "j" / "policy_config.json") as f, open(tmp_path / "t" / "policy_config.json") as g:
+        want = json.load(f)
+        assert json.load(g) == want and want["policy_type"] == "sac_actor"
+    assert sorted(os.listdir(tmp_path / "t")) == ["policy.pt", "policy_config.json"]
+    loaded = policy_serialize.load_policy_from_path(str(tmp_path / "t"), device="cpu")
+    assert isinstance(loaded, SACPolicy) and loaded.hid_sizes == (16, 8)
+    assert sorted(loaded.state_dict()) == sorted(pol.state_dict())
+    for k, v in pol.state_dict().items():
+        assert torch.equal(v, loaded.state_dict()[k]), k
+    obs = np.random.default_rng(0).normal(size=(6, 3)).astype(np.float32)
+    got, _ = loaded.deterministic_fn()(torch.from_numpy(obs))
+    want_acts, _ = jpol.deterministic_fn()(jvars, jax.numpy.asarray(obs), None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_acts), rtol=1e-5, atol=1e-5)
+    # The architecture from the JAX package's own config file, and the
+    # "saved" loader.
+    with open(tmp_path / "j" / "policy_config.json") as f:
+        assert isinstance(policy_serialize.policy_from_config(json.load(f)), SACPolicy)
+    venv = make_vec_env("Pendulum-v1", num_envs=2, device="cpu")
+    pend = SACPolicy(venv.observation_space, venv.action_space, hid_sizes=(8,))
+    policy_serialize.save_policy(str(tmp_path / "p"), pend)
+    assert isinstance(policy_serialize.load_policy("saved", venv, path=str(tmp_path / "p")), SACPolicy)

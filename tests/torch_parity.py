@@ -194,3 +194,78 @@ def assert_params_close(torch_module, jax_params, jax_init, prefix: str, rel: fl
     err = max(np.abs(got[k] - want[k]).max() for k in want)
     assert err <= rel * upd, f"max param error {err:.3g} vs largest update {upd:.3g} (limit {rel:.3g})"
     return err / upd
+
+
+def feed_arrays(values):
+    """As ``feed``, keeping each array's dtype (noise and uniforms)."""
+    queue = [np.array(v) for v in values]
+
+    def take(*args, **kwargs):
+        return torch.from_numpy(queue.pop(0))
+
+    take.remaining = queue
+    return take
+
+
+def _jax_sample_draws(k_sample, batch, size, n_expert, replay_idx, expert_idx):
+    """The indices one replay sample draws from ``k_sample``: uniform rows
+    of the ring (``ReplayBuffer.sample``), or SQIL's ``half`` fresh rows and
+    ``batch - half`` expert rows (imitation_tpu/algorithms/sqil.py
+    ``sample_hook``)."""
+    if n_expert is None:
+        replay_idx.append(np.asarray(jax.random.randint(k_sample, (batch,), 0, max(size, 1))))
+        return
+    k_new, k_exp = jax.random.split(k_sample)
+    half = batch // 2
+    replay_idx.append(np.asarray(jax.random.randint(k_new, (half,), 0, max(size, 1))))
+    expert_idx.append(np.asarray(jax.random.randint(k_exp, (batch - half,), 0, n_expert)))
+
+
+def jax_sac_draws(key, *, train_freq, num_envs, act_dim, gradient_steps, batch, size, n_expert=None):
+    """The draws of one SAC ``train_step`` from its state's key
+    (imitation_tpu/rl/sac.py ``train_step`` and ``_process``): the collect's
+    noise, then each update's next-action and policy noise, in the order the
+    port asks for them; the replay (and SQIL expert) indices of each update;
+    and the key of the next step."""
+    key, k_roll = jax.random.split(key)
+    noise = [np.asarray(jax.random.normal(k, (num_envs, act_dim)))
+             for k in jax.random.split(k_roll, train_freq)]
+    update_keys = jax.random.split(key, gradient_steps + 1)
+    replay_idx, expert_idx = [], []
+    for k in update_keys[1:]:
+        k_sample, k_next, k_pi = jax.random.split(k, 3)
+        _jax_sample_draws(k_sample, batch, size, n_expert, replay_idx, expert_idx)
+        noise += [np.asarray(jax.random.normal(k_next, (batch, act_dim))),
+                  np.asarray(jax.random.normal(k_pi, (batch, act_dim)))]
+    return noise, replay_idx, expert_idx, update_keys[0]
+
+
+def jax_dqn_draws(key, *, train_freq, num_envs, n_actions, gradient_steps, batch, size, n_expert=None):
+    """The draws of one DQN ``train_step`` from its state's key
+    (imitation_tpu/rl/dqn.py): each collect step's (uniforms of the epsilon
+    test, random actions), the replay (and SQIL expert) indices of each
+    update, and the key of the next step."""
+    key, k_roll = jax.random.split(key)
+    explore = []
+    for step_key in jax.random.split(k_roll, train_freq):
+        _, k_eps, k_unif = jax.random.split(step_key, 3)
+        explore.append((np.asarray(jax.random.uniform(k_eps, (num_envs,))),
+                        np.asarray(jax.random.randint(k_unif, (num_envs,), 0, n_actions))))
+    sample_keys = jax.random.split(key, gradient_steps + 1)
+    replay_idx, expert_idx = [], []
+    for k in sample_keys[1:]:
+        _jax_sample_draws(k, batch, size, n_expert, replay_idx, expert_idx)
+    return explore, replay_idx, expert_idx, sample_keys[0]
+
+
+def inject_resets(monkeypatch, venv, state_x):
+    """Makes every reset of ``venv``'s env return the JAX engine's initial
+    states ``state_x`` (``[B, ...]``), so both packages step from the same
+    states; no episode may end in a test that uses it."""
+    obs_of = getattr(type(venv.env), "obs_of", lambda x: x)
+
+    def reset(n, generator):
+        x = torch.from_numpy(np.array(state_x))
+        return obs_of(x), x
+
+    monkeypatch.setattr(venv.env, "reset", reset)
