@@ -12,8 +12,8 @@ Phases, each timed and printed on its own line:
 3. kernels: holds each kernel against its plain PyTorch version at the main
    paths' shapes and at edge shapes. B1 GAE allclose at rtol = atol = 1e-5
    (it composes segments of the scan, so it sums in another order), printing
-   its grid at each shape; the main paths' [128, 1024] and [256, 8] with
-   float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
+   its grid at each shape; the main paths' [128, 1024], [256, 8], [64, 32]
+   and [128, 8] with float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
    the latter also at the CLI defaults' sizes, each four fields in one
    launch; the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
@@ -21,7 +21,8 @@ Phases, each timed and printed on its own line:
    out-of-range indices. Times each kernel and its plain version and, for
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
-   [2048, 4096] and the CLI's [256, 8], B2 per disc step (the CLI defaults'
+   [2048, 4096], the CLI's [256, 8] and the RLHF paths' [64, 32] and
+   [128, 8], B2 per disc step (the CLI defaults'
    included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
@@ -82,6 +83,35 @@ Phases, each timed and printed on its own line:
    ``train_fused`` on a fresh trainer, GAIL 1 round of ``train``; then B2
    on the AIRL trainer's own demo store and ring, exactly against its plain
    version, timed beside its bound and the ``index_select`` + ``cat`` route.
+17. rlhf_pendulum: ``PreferenceComparisons.train`` at
+   benchmarking/run_rlhf.py's ``pendulum`` preset (32 envs, PPO n_steps 64,
+   32 minibatches x 10 epochs, a (32, 32) actor-critic with
+   normalize_features, ``BasicRewardNet(normalize_input=True)``, fragments
+   of 100 steps, initial_epoch_multiplier 200, exploration_frac 0.05,
+   transition_oversampling 1.5), cut to 3 iterations, 12,288 timesteps and
+   90 comparisons (each cut printed): B1 at [64, 32].
+18. rlhf_active_pendulum: ``train_preference_comparisons with active``
+   (8 envs, PPO n_steps 128, 16 minibatches x 4 epochs, lr 3e-4, a
+   ``RewardEnsemble`` of 3 ``BasicRewardNet``s with member ``RunningNorm``,
+   ``ActiveSelectionFragmenter`` on the logit with oversampling 2,
+   fragments of 50, the reward trainer's 3 epochs of batch 32), cut to 2
+   iterations, 4,096 timesteps and 80 comparisons: B1 at [128, 8].
+19. pebble_pendulum: ``train_preference_comparisons with sac`` (8 envs,
+   SAC lr 3e-4, train_freq 64, batch 64, learning_starts 100, (256, 256)
+   nets, a ``NormalizedRewardNet`` over a ``BasicRewardNet``), cut to 2
+   iterations, 4,000 timesteps and 80 comparisons: no kernel.
+
+The RLHF phases print seconds per iteration (the first holds the long
+initial reward training), the last iteration under torch.profiler split by
+the loop's ``pc.*`` ranges (host ms / kernels / kernel ms) and B1's
+launches; they assert finite metrics and parameters, the dataset size the
+schedule gives, fragment rewards equal to Pendulum's reward of their own
+observations and actions, a fresh reward net fitted to the loop's
+comparisons (200 epochs) at an accuracy of at least 0.5 on them (the
+loop's own reward is printed beside it: the clamped BCE leaves pairs it
+got confidently wrong without gradient, so at these depths it ends near
+chance for some seeds), and one more reward-trainer update on the card
+against the same update of a CPU copy (weights, optimizer moments, pairs).
 
 The SQIL phases print steps and updates per second, the metrics of one
 more step (losses asserted finite), returns over 64 episodes before and
@@ -99,9 +129,11 @@ Neither launches B1 or B2: their learner steps are eager PyTorch; nor do
 the SAC and SQIL phases.
 
 Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
-airl_sac_fused, gail_sac) is driven with the kernels' launch counts set to
-0 just before it and read just after: B2 must launch once per disc step,
-and B1 once per round or iteration of a PPO path and never on a SAC one. The reward
+airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
+pebble_pendulum) is driven with the kernels' launch counts set to 0 just
+before it and read just after: B2 must launch once per disc step (never in
+RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
+one. The reward
 nets' forward on the card is held against a CPU copy on 4096 replay rows.
 
 Then one JSON line listing the kernels, the nvidia-smi line, and the last
@@ -155,6 +187,14 @@ def cuda_ms(fn, reps: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def raw_events(prof):
+    """A torch.profiler trace's raw kineto events, read once per trace:
+    building torch's event tree of a long trace takes minutes on the host."""
+    if not hasattr(prof, "raw_events"):
+        prof.raw_events = list(prof.profiler.kineto_results.events())
+    return prof.raw_events
+
+
 def kernel_times(prof):
     """{kernel name: (count, device microseconds)} of a torch.profiler trace,
     kernels only (GPU-side user annotations such as ``Optimizer.step`` span
@@ -162,11 +202,11 @@ def kernel_times(prof):
     from torch.autograd import DeviceType
 
     out = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+    for e in raw_events(prof):
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
             continue
-        count, us = out.get(e.name, (0, 0.0))
-        out[e.name] = (count + 1, us + e.time_range.elapsed_us())
+        count, us = out.get(e.name(), (0, 0.0))
+        out[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
     return out
 
 
@@ -215,12 +255,14 @@ def check_kernels(torch, dev):
                        f"grid {gae.launch_shape(T, B)}")
         return err
 
-    # main path, HalfCheetah path, large, the CLI's AIRL round
-    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8))
+    # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's
+    # and the RLHF CLI's PPO iterations
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8))
     kept, err_path = {}, None
-    # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl) and
-    # [256, 8] (airl_cli); then the HalfCheetah path's, edge shapes and a large one.
-    main = ((128, 1024), (256, 8))
+    # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl), [256, 8]
+    # (airl_cli), [64, 32] (rlhf_pendulum) and [128, 8] (rlhf_active_pendulum);
+    # then the HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -266,6 +308,8 @@ def check_kernels(torch, dev):
         library_ms=None, device_ms=main_row["device_ms"], shape=f"[{T}, {B}] f32 x5 -> x2",
         grid=main_row["grid"],
         airl_cli=dict(gae_rows[(256, 8)], shape="[256, 8] f32 x5 -> x2"),
+        rlhf=dict(gae_rows[(64, 32)], shape="[64, 32] f32 x5 -> x2"),
+        rlhf_cli=dict(gae_rows[(128, 8)], shape="[128, 8] f32 x5 -> x2"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -979,7 +1023,6 @@ def profile_ranges(torch, fn, phases):
     the count and device microseconds of the kernels that ran inside each
     range's device span (None where the trace has no device spans). Returns
     (host, device, {kernel: (count, us)}, wall seconds)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -987,15 +1030,28 @@ def profile_ranges(torch, fn, phases):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    host, dev = split_ranges(prof, phases)
+    return host, dev, kernel_times(prof), wall
+
+
+def split_ranges(prof, phases):
+    """The host microseconds of each of the port's ``record_function``
+    ranges ``phases`` in a torch.profiler trace, and the count and device
+    microseconds of the kernels that ran inside each range's device span
+    (None where the trace has no device spans)."""
+    from torch.autograd import DeviceType
+
     host, spans, kernels = {p: 0.0 for p in phases}, [], []
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in phases:
-            host[e.name] += e.time_range.elapsed_us()
-        elif e.device_type == DeviceType.CUDA and getattr(e, "is_user_annotation", False):
-            if e.name in phases:
-                spans.append((e.time_range.start, e.time_range.end, e.name))
-        elif e.device_type == DeviceType.CUDA:
-            kernels.append((e.time_range.start, e.time_range.elapsed_us()))
+    for e in raw_events(prof):
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in phases:
+                host[name] += e.duration_ns() / 1e3
+        elif e.is_user_annotation():
+            if name in phases:
+                spans.append((e.start_ns(), e.end_ns(), name))
+        else:
+            kernels.append((e.start_ns(), e.duration_ns() / 1e3))
     dev = {p: [0, 0.0] for p in phases}
     for start, us in kernels:
         for lo, hi, name in spans:
@@ -1003,7 +1059,7 @@ def profile_ranges(torch, fn, phases):
                 dev[name][0] += 1
                 dev[name][1] += us
                 break
-    return host, dev if spans else None, kernel_times(prof), wall
+    return host, dev if spans else None
 
 
 def profile_round(torch, phase, trainer, s_per_round):
@@ -1225,6 +1281,262 @@ def run_adversarial_sac(torch, dev):
 
 
 
+# The loop's stages, as PreferenceComparisons.train names its ranges.
+RLHF_RANGES = ("pc.sample", "pc.fragment", "pc.gather", "pc.reward_train", "pc.agent_train")
+
+
+def rlhf_pendulum(dev):
+    """benchmarking/run_rlhf.py's ``pendulum`` preset (:40-48, 233-256): 32
+    envs; PPO n_steps 64, 32 minibatches, 10 epochs, lr 2e-3, ent_coef
+    0.01, gamma 0.97, clip 0.1, a (32, 32) actor-critic with
+    normalize_features; BasicRewardNet(normalize_input=True); fragments of
+    100 steps, initial_epoch_multiplier 200, exploration_frac 0.05,
+    transition_oversampling 1.5; the default reward trainer (batch 32, one
+    epoch, lr 1e-3)."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+    from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+
+    venv = make_vec_env("Pendulum-v1", num_envs=32, device=dev)
+    policy = ActorCriticPolicy(venv.observation_space, venv.action_space, hid_sizes=(32, 32),
+                               normalize_features=True)
+    ppo = PPO(venv, policy, PPOConfig(n_steps=64, n_minibatches=32, n_epochs=10, learning_rate=2e-3,
+                                      ent_coef=0.01, gamma=0.97, gae_lambda=0.95, clip_range=0.1), seed=0)
+    net = BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=True)
+    agent = pc.AgentTrainer(ppo, net, venv, rng=0, exploration_frac=0.05)
+    return pc.PreferenceComparisons(
+        agent, net, num_iterations=3, fragmenter=pc.RandomFragmenter(rng=0, warning_threshold=0),
+        preference_gatherer=pc.SyntheticGatherer(rng=np.random.default_rng(0)), fragment_length=100,
+        transition_oversampling=1.5, initial_comparison_frac=0.1, initial_epoch_multiplier=200.0,
+        allow_variable_horizon=True, rng=0, seed=0, custom_logger=make_logger())
+
+
+def rlhf_cli(dev, algo):
+    """``train_preference_comparisons with active env_name=Pendulum-v1``
+    (algo ``ppo``) or ``with sac env_name=Pendulum-v1`` (algo ``sac``),
+    imitation_tpu/scripts/train_preference_comparisons.py:26-58, 84-117,
+    174-182: 8 envs; fragments of 50 steps, initial_epoch_multiplier 4,
+    the reward trainer's 3 epochs of batch 32 at lr 1e-3. ``ppo``: PPO
+    n_steps 128, 16 minibatches, 4 epochs, lr 3e-4; a RewardEnsemble of 3
+    BasicRewardNets with member RunningNorm; active selection on the logit,
+    oversampling 2. ``sac``: SACConfig(lr 3e-4, train_freq 64, batch 64,
+    learning_starts 100) with (256, 256) nets; a NormalizedRewardNet
+    (RunningNorm) over a BasicRewardNet."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.networks import RunningNorm
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet, NormalizedRewardNet, RewardEnsemble
+    from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+
+    venv = make_vec_env("Pendulum-v1", num_envs=8, device=dev)
+    obs, act = venv.observation_space, venv.action_space
+    fragmenter = pc.RandomFragmenter(rng=0, warning_threshold=0)
+    if algo == "ppo":
+        net = RewardEnsemble(obs, act, member_cls=BasicRewardNet, num_members=3,
+                             member_normalize_cls=RunningNorm)
+        ppo = PPO(venv, ActorCriticPolicy(obs, act),
+                  PPOConfig(n_steps=128, n_minibatches=16, n_epochs=4, learning_rate=3e-4), seed=0)
+        agent = pc.AgentTrainer(ppo, net, venv, rng=0)
+        preference_model = pc.PreferenceModel(net)
+        fragmenter = pc.ActiveSelectionFragmenter(preference_model, fragmenter, 2.0, uncertainty_on="logit")
+    else:
+        net = NormalizedRewardNet(BasicRewardNet(obs, act), RunningNorm)
+        sac = SAC(venv, SACConfig(learning_rate=3e-4, train_freq=64, batch_size=64, learning_starts=100), seed=0)
+        agent = pc.SACAgentTrainer(sac, net, venv, rng=0)
+        preference_model = pc.PreferenceModel(net)
+    trainer = pc._make_reward_trainer(preference_model, rng=0,
+                                      reward_trainer_kwargs=dict(epochs=3, batch_size=32, lr=1e-3))
+    return pc.PreferenceComparisons(
+        agent, net, num_iterations=2, fragmenter=fragmenter,
+        preference_gatherer=pc.SyntheticGatherer(rng=np.random.default_rng(0)), reward_trainer=trainer,
+        fragment_length=50, transition_oversampling=1.0, initial_comparison_frac=0.1,
+        initial_epoch_multiplier=4.0, allow_variable_horizon=True, rng=0, seed=0, custom_logger=make_logger())
+
+
+def reward_update_check(torch, phase, loop):
+    """One more update of the loop's reward trainer on the card against the
+    same update of a CPU copy (the net, its optimizer's moments and count)
+    on the same pairs: the first ``batch_size`` pairs of the dataset (each
+    member drawing its own with an ensemble). Adam divides each coordinate's
+    step by its own gradient scale, so where that scale is rounding noise a
+    last-bit difference moves the step far more than an ulp: the CPU update
+    from weights nudged by about one float32 ulp gives the floor, and the
+    card must agree within 1% of the learning rate or 4x that floor. The
+    output bias is printed apart: it adds the same amount to both fragments
+    of a pair, so its whole gradient is rounding noise (the CPU tests hold
+    it the same way)."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+
+    trainer = loop.reward_trainer
+    pm = trainer.preference_model
+    batch = loop.dataset.as_batch(loop.device)
+    n, bs = batch.num_pairs, min(trainer.batch_size, batch.num_pairs)
+    if hasattr(trainer, "num_members"):
+        idx = torch.from_numpy(np.random.default_rng(0).integers(0, n, (trainer.num_members, bs)))
+    else:
+        idx = torch.arange(bs)
+    idx = idx.to(loop.device)
+    lam = trainer._lambda()
+    moments = copy.deepcopy(trainer.optimizer.state_dict())
+
+    def cpu_update(rel):
+        net = copy.deepcopy(pm.model).cpu()
+        with torch.no_grad():
+            for p in net.parameters():
+                p.mul_(1 + rel)
+        cpu_trainer = type(trainer)(
+            pc.PreferenceModel(net, noise_prob=pm.noise_prob, discount_factor=pm.discount_factor,
+                               threshold=pm.threshold),
+            batch_size=trainer.batch_size, minibatch_size=trainer.minibatch_size,
+            weight_decay=trainer.optimizer.weight_decay, custom_logger=make_logger())
+        cpu_trainer.optimizer.load_state_dict(copy.deepcopy(moments))
+        metrics = cpu_trainer._update(batch.map(lambda x: x[idx].cpu()), lam)
+        return {k: p.detach() for k, p in net.named_parameters()}, float(metrics["loss"])
+
+    want, want_loss = cpu_update(0.0)
+    nudged = [cpu_update(rel)[0] for rel in (1.2e-7, -6e-8)]
+    got_loss = float(trainer._update(batch.map(lambda x: x[idx]), lam)["loss"])
+    got = {k: p.detach().cpu() for k, p in pm.model.named_parameters()}
+    keys = [k for k in got if not k.endswith("dense_out.bias")]
+    diff = {k: (got[k] - want[k]).abs().max().item() for k in got}
+    floor = max((m[k] - want[k]).abs().max().item() for m in nudged for k in keys)
+    worst = max(keys, key=diff.get)
+    bias = max(diff[k] for k in got if k not in keys)
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    tol = max(1e-2 * lr, 4 * floor)
+    log("reference", f"{phase} reward-trainer update GPU vs CPU on {bs} pairs: max abs param diff "
+                     f"{diff[worst]:.3g} ({worst}; limit {tol:.3g}: the CPU's float32 floor {floor:.3g}, "
+                     f"lr {lr:g}), output bias {bias:.3g}; loss {got_loss:.6g} vs {want_loss:.6g}")
+    if not (diff[worst] <= tol and bias <= 2 * lr and abs(got_loss - want_loss) <= 1e-4 * max(1.0, want_loss)):
+        raise AssertionError(f"{phase}: the reward update on the card disagrees with the CPU's")
+
+
+def check_reward_fit(torch, phase, loop):
+    """The learned reward on the loop's own comparisons: its accuracy and
+    loss, and the share of pairs whose predicted probability is clamped to
+    [1e-7, 1 - 1e-7], where the loss has no gradient (the JAX package's
+    BCE clamps there too, so a pair the reward got confidently wrong stays
+    wrong; CPU runs of these configurations over seeds 0-3 ended at
+    0.50-0.98). So a reward net of the same kind, re-initialised, is also
+    fitted afresh by a trainer of the same kind for 200 epochs on the
+    loop's comparisons, and that fit must reach an accuracy of at least 0.5
+    on them (0.64-1.0 on the CPU over seeds 0-3). Also each fragment's
+    rewards must be Pendulum's reward of its own observations and actions."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+
+    batch = loop.dataset.as_batch(loop.device)
+    obs, acts, rews = (x.cpu().numpy() for x in (batch.obs[:, :, :-1], batch.acts, batch.rews_gt))
+    th = np.arctan2(obs[..., 1], obs[..., 0])
+    want = -(th ** 2 + 0.1 * obs[..., 2] ** 2 + 0.001 * np.clip(acts[..., 0], -2.0, 2.0) ** 2)
+    data_err = float(np.abs(want - rews).max())
+    pm = loop.reward_trainer.preference_model
+
+    def fit(model):
+        with torch.no_grad():
+            out = pc.CrossEntropyRewardLoss()(model, batch)
+            probs = model(batch)
+        clamped = float(((probs <= 1e-7) | (probs >= 1 - 1e-7)).float().mean())
+        return float(out.metrics["accuracy"]), float(out.loss), clamped, float(out.metrics["gt_reward_loss"])
+
+    accuracy, loss, clamped, gt_loss = fit(pm)
+    net = copy.deepcopy(pm.model)
+    net.init(torch.Generator(device=loop.device).manual_seed(1))
+    fresh = pc.PreferenceModel(net, noise_prob=pm.noise_prob, discount_factor=pm.discount_factor,
+                               threshold=pm.threshold)
+    trainer = type(loop.reward_trainer)(fresh, rng=0, batch_size=loop.reward_trainer.batch_size,
+                                        epochs=200, custom_logger=make_logger())
+    t0 = time.perf_counter()
+    trainer.train(loop.dataset)
+    refit_s = time.perf_counter() - t0
+    refit, refit_loss, refit_clamped, _ = fit(fresh)
+    log(phase, f"the loop's reward on its own {batch.num_pairs} comparisons: accuracy {accuracy:.4g}, loss "
+               f"{loss:.4g} ({100 * clamped:.1f}% of pair predictions clamped, without gradient), the "
+               f"ground-truth reward's loss {gt_loss:.4g}; refitted afresh for 200 epochs ({refit_s:.2f} s): "
+               f"accuracy {refit:.4g}, loss {refit_loss:.4g} ({100 * refit_clamped:.1f}% clamped); fragment "
+               f"rewards against Pendulum's reward of their observations and actions: max abs diff {data_err:.3g}")
+    if not (refit >= 0.5 and data_err <= 1e-3 and math.isfinite(loss)):
+        raise AssertionError(f"{phase}: a fresh reward fitted to the comparisons reached accuracy {refit} "
+                             f"(data error {data_err})")
+
+
+def run_rlhf(torch, phase, loop, total_timesteps, total_comparisons, cuts):
+    """``PreferenceComparisons.train`` of ``loop`` on the card, with the
+    kernels' launch counts set to 0 just before and read just after: B1
+    once per PPO iteration (none with SAC), B2 never. Seconds per
+    iteration (the first includes the long initial reward training), the
+    last iteration under torch.profiler split by the ``pc.*`` ranges;
+    metrics finite, the dataset as scheduled, the comparisons fitted
+    (``check_reward_fit``), and one reward update held against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+
+    log(phase, "cut: " + "; ".join(cuts))
+    n_iters = loop.num_iterations + 1  # the initial comparisons, then the schedule
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    ends = []
+
+    def callback(i):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        if i == n_iters - 2:
+            prof.start()
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    result = loop.train(total_timesteps, total_comparisons, callback=callback)
+    prof.stop()
+    elapsed = time.perf_counter() - t0
+    launches = counts()
+    per_iter = [ends[0] - t0] + [b - a for a, b in zip(ends, ends[1:])]
+    agent = loop.trajectory_generator
+    ppo_iterations = agent.state.n_updates if isinstance(agent, pc.AgentTrainer) else 0
+    log(phase, f"{n_iters} iterations in {elapsed:.3f} s: " + ", ".join(f"{x:.3f}" for x in per_iter)
+               + f" s (the last profiled); {agent.state.timesteps} agent env steps; launches {launches} "
+                 f"for {ppo_iterations} PPO iterations; dataset {len(loop.dataset)} comparisons")
+    accuracies = [r.get("mean/reward/final/train/accuracy", float("nan")) for r in loop.logger.rows[-n_iters:]]
+    log(phase, "reward trainer's last-batch accuracy by iteration: " + ", ".join(f"{a:.4g}" for a in accuracies))
+    row = loop.logger.rows[-1]
+    keys = [k for k in sorted(row) if k.startswith(("mean/reward/final/", "mean/preferences/", "mean/agent/"))]
+    log(phase, "last iteration logged: " + ", ".join(f"{k[5:]} {row[k]:.4g}" for k in keys
+                                                      if isinstance(row[k], float)))
+    finite = [result["reward_loss"], result["reward_accuracy"], row["mean/reward/final/train/loss"]]
+    if isinstance(agent, pc.AgentTrainer):
+        finite += [row["mean/agent/loss"], row["mean/agent/value_loss"]]
+    params = list(loop.model.parameters()) + list(agent.policy.parameters())
+    if not (all(math.isfinite(x) for x in finite) and all(bool(torch.isfinite(p).all()) for p in params)):
+        raise AssertionError(f"{phase}: non-finite metrics or parameters: {finite}")
+    if len(loop.dataset) != total_comparisons:
+        raise AssertionError(f"{phase}: {len(loop.dataset)} comparisons, {total_comparisons} scheduled")
+    if launches != {"gae": ppo_iterations, "assemble_rows": 0} or (ppo_iterations and not launches["gae"]):
+        raise AssertionError(f"{phase}: launches {launches}, expected {ppo_iterations} GAE and no B2")
+    check_reward_fit(torch, phase, loop)
+    host, dev_t = split_ranges(prof, RLHF_RANGES)
+    per_name = kernel_times(prof)
+    n_kernels, kernel_us = sum(c for c, _ in per_name.values()), sum(us for _, us in per_name.values())
+    log("profile", f"{phase} last iteration ({per_iter[-1]:.3f} s profiled) by range (host ms / kernels / "
+                   f"kernel ms): " + ", ".join(
+                       f"{p} {host[p] / 1e3:.1f} / " + (f"{dev_t[p][0]} / {dev_t[p][1] / 1e3:.2f}"
+                                                        if dev_t else "not measured") for p in RLHF_RANGES)
+                   + f"; kernel time {kernel_us / 1e6:.4f} s in {n_kernels} kernels = "
+                     f"{100 * kernel_us / 1e6 / per_iter[-1]:.1f}% of the profiled iteration")
+    reward_update_check(torch, phase, loop)
+    return launches, per_iter
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1633,23 @@ def main() -> int:
     paths.update(launches)
     next(e for e in entries if e["name"] == "assemble_rows")["sac_disc_step"] = b2_sac
     log("airl_sac", f"done in {time.perf_counter() - t0:.2f} s")
+
+    # Preference comparisons: PPO generators launch B1 once per PPO
+    # iteration, at [64, 32] and [128, 8]; PEBBLE's SAC launches neither.
+    for phase, make, budget, cuts in (
+        ("rlhf_pendulum", rlhf_pendulum, (12_288, 90), (
+            "3 iterations instead of 20", "12,288 timesteps instead of 400,000 (two PPO iterations of "
+            "64 x 32 per agent training)", "90 comparisons instead of 600 (the preset's ~30 per iteration)")),
+        ("rlhf_active_pendulum", lambda d: rlhf_cli(d, "ppo"), (4_096, 80), (
+            "2 iterations instead of 10", "4,096 timesteps instead of 20,000",
+            "80 comparisons instead of 400")),
+        ("pebble_pendulum", lambda d: rlhf_cli(d, "sac"), (4_000, 80), (
+            "2 iterations instead of 10", "4,000 timesteps instead of 20,000",
+            "80 comparisons instead of 400")),
+    ):
+        t0 = time.perf_counter()
+        paths[phase], _ = run_rlhf(torch, phase, make(dev), *budget, cuts)
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

@@ -5,9 +5,11 @@ The flax variables are given as nested dicts of numpy arrays
 ``init`` returns, or a msgpack restore). Layer names are kept, so a flax path
 ``params/pi0/kernel`` becomes the torch key ``net.pi0.weight``. A flax
 ``Dense.kernel`` is ``[in, out]`` and a torch ``Linear.weight`` is
-``[out, in]``, so kernels are transposed. ``RunningNorm`` statistics
-(``stats/<layer>/{running_mean, running_var, count}``) become the module's
-buffers of the same names.
+``[out, in]``, so kernels are transposed. A member-stacked kernel of an
+ensemble (``nn.vmap``, ``[M, in, out]``) is the port's ``StackedMLP`` layout
+already and is kept as it is. ``RunningNorm`` and ``EMANorm`` statistics
+(``stats/<layer>/{running_mean, running_var, count, ...}``, with a leading
+member axis in an ensemble) become the module's buffers of the same names.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[s
                 continue
             arr = np.asarray(value)
             if name == "kernel":
-                name, arr = "weight", arr.T
+                name, arr = "weight", (arr.T if arr.ndim == 2 else arr)
             out[prefix + ".".join(path + [name])] = torch.from_numpy(np.array(arr, copy=True))
 
     for collection in ("params", "stats"):
@@ -47,7 +49,11 @@ def reward_net_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tenso
 
     ``BasicRewardNet`` keys are ``mlp.*`` and ``input_norm.*``; a shaped net
     (``BasicShapedRewardNet``) nests them as ``base.*`` and its potential as
-    ``potential.mlp.*``, the flax submodule names.
+    ``potential.mlp.*``; a ``NormalizedRewardNet`` as ``base.*`` beside its
+    output statistics ``normalizer.*``; a ``RewardEnsemble`` as
+    ``members.*`` (``members.base.*`` and ``members.normalizer.*`` with
+    normalized members), every tensor with the member axis first: the flax
+    submodule names.
     """
     return flax_to_state_dict(variables)
 

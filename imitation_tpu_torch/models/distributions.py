@@ -3,7 +3,8 @@
 Port of ``imitation_tpu/models/distributions.py``. Sampling takes an explicit
 ``torch.Generator``; it does not reproduce ``jax.random``'s bits, so tests
 compare log-probabilities and entropies, not samples, or feed the JAX
-package's noise to ``SquashedGaussian`` through ``_standard_normal``.
+package's noise to ``DiagGaussian`` and ``SquashedGaussian`` through
+``_standard_normal``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ _LOG_2 = math.log(2.0)
 
 
 def _standard_normal(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard-normal noise of a squashed-Gaussian sample, on the
-    generator's device (tests substitute the JAX package's draws)."""
+    """Standard-normal noise of a Gaussian or squashed-Gaussian sample, on
+    the generator's device (tests substitute the JAX package's draws)."""
     return torch.randn(shape, generator=generator, device=generator.device)
 
 
@@ -76,9 +77,10 @@ class DiagGaussian:
         return per_dim.sum(dim=-1)
 
     def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        eps = torch.randn(
-            self.mean.shape, generator=generator, device=self.mean.device
-        )
+        if generator is None:
+            eps = torch.randn(self.mean.shape, device=self.mean.device)
+        else:
+            eps = _standard_normal(tuple(self.mean.shape), generator)
         return self.mean + eps * torch.exp(self._lstd())
 
     def mode(self) -> torch.Tensor:

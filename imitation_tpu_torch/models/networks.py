@@ -9,7 +9,11 @@ Port of ``imitation_tpu/models/networks.py``:
   statistics are buffers; ``RunningNorm``: Chan et al. streaming moments with
   the same update rule, including the first batch adopting its own
   statistics outright; ``EMANorm``: bias-corrected exponential moving
-  averages of the moments.
+  averages of the moments. With ``members=M`` a layer keeps M independent
+  sets of statistics (``[M, F]``), as ``nn.vmap`` over members does.
+* ``StackedMLP``: M MLPs of one shape whose layers are stacked ``[M, in,
+  out]`` and evaluated for all members in one batched product per layer
+  (the members of a ``RewardEnsemble``).
 
 Linear layers are initialised as flax's ``Dense`` is: LeCun-normal kernels
 (a normal truncated at two standard deviations, variance 1/fan_in) and zero
@@ -55,16 +59,20 @@ class NormLayer(nn.Module):
     The statistics are buffers (``running_mean``, ``running_var``,
     ``count``). ``update_stats=True`` folds the batch in before normalizing,
     matching the JAX layers' train-time behaviour; subclasses define
-    ``update``.
+    ``update``. With ``members=M`` every buffer gains a leading member axis
+    and inputs are ``[M, ..., F]``: member m is normalized, and updated, by
+    its own statistics.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, members: Optional[int] = None):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-        self.register_buffer("count", torch.zeros((), dtype=torch.int32))
+        self.members = members
+        lead = () if members is None else (members,)
+        self.register_buffer("running_mean", torch.zeros(lead + (num_features,)))
+        self.register_buffer("running_var", torch.ones(lead + (num_features,)))
+        self.register_buffer("count", torch.zeros(lead, dtype=torch.int32))
 
     def reset_stats(self) -> None:
         self.running_mean.zero_()
@@ -74,10 +82,19 @@ class NormLayer(nn.Module):
     def update(self, x: torch.Tensor) -> None:
         raise NotImplementedError
 
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as float32 rows ``[N, F]``, or ``[M, N, F]`` per member."""
+        lead = () if self.members is None else (self.members,)
+        return x.reshape(lead + (-1, self.num_features)).float()
+
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         if update_stats:
             self.update(x)
-        return (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        mean, var = self.running_mean, self.running_var
+        if self.members is not None:  # [M, F] against [M, ..., F]
+            shape = (self.members,) + (1,) * (x.dim() - 2) + (self.num_features,)
+            mean, var = mean.reshape(shape), var.reshape(shape)
+        return (x - mean) * torch.rsqrt(var + self.eps)
 
 
 class RunningNorm(NormLayer):
@@ -85,11 +102,11 @@ class RunningNorm(NormLayer):
 
     @torch.no_grad()
     def update(self, x: torch.Tensor) -> None:
-        b = x.reshape(-1, self.num_features).float()
-        b_count = b.shape[0]
-        b_mean = b.mean(dim=0)
-        b_var = b.var(dim=0, unbiased=False)
-        count = self.count
+        b = self._rows(x)
+        b_count = b.shape[-2]
+        b_mean = b.mean(dim=-2)
+        b_var = b.var(dim=-2, unbiased=False)
+        count = self.count[..., None]
         total = count + b_count
         denom = torch.clamp(total, min=1)
         delta = b_mean - self.running_mean
@@ -103,7 +120,7 @@ class RunningNorm(NormLayer):
         is_first = count == 0
         self.running_mean.copy_(torch.where(is_first, b_mean, new_mean))
         self.running_var.copy_(torch.where(is_first, b_var, new_var))
-        self.count.copy_(total)
+        self.count.copy_(total[..., 0])
 
 
 class EMANorm(NormLayer):
@@ -115,11 +132,12 @@ class EMANorm(NormLayer):
     the corrected mean square less the squared corrected mean, floored at 0.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5, decay: float = 0.99):
-        super().__init__(num_features, eps)
+    def __init__(self, num_features: int, eps: float = 1e-5, decay: float = 0.99,
+                 members: Optional[int] = None):
+        super().__init__(num_features, eps, members)
         self.decay = decay
-        self.register_buffer("raw_mean", torch.zeros(num_features))
-        self.register_buffer("raw_sq", torch.zeros(num_features))
+        self.register_buffer("raw_mean", torch.zeros_like(self.running_mean))
+        self.register_buffer("raw_sq", torch.zeros_like(self.running_mean))
 
     def reset_stats(self) -> None:
         super().reset_stats()
@@ -128,12 +146,12 @@ class EMANorm(NormLayer):
 
     @torch.no_grad()
     def update(self, x: torch.Tensor) -> None:
-        b = x.reshape(-1, self.num_features).float()
+        b = self._rows(x)
         d = self.decay
-        self.raw_mean.copy_(d * self.raw_mean + (1 - d) * b.mean(dim=0))
-        self.raw_sq.copy_(d * self.raw_sq + (1 - d) * (b * b).mean(dim=0))
+        self.raw_mean.copy_(d * self.raw_mean + (1 - d) * b.mean(dim=-2))
+        self.raw_sq.copy_(d * self.raw_sq + (1 - d) * (b * b).mean(dim=-2))
         self.count.add_(1)
-        correction = 1.0 - torch.pow(d, self.count.float())  # float32, as in JAX
+        correction = 1.0 - torch.pow(d, self.count[..., None].float())  # float32, as in JAX
         corr_mean = self.raw_mean / correction
         corr_sq = self.raw_sq / correction
         self.running_mean.copy_(corr_mean)
@@ -182,6 +200,61 @@ class MLP(nn.Module):
         for i in range(len(self.hid_sizes)):
             x = self.activation(getattr(self, f"dense{i}")(x))
         x = self.dense_out(x)
+        if self.squeeze_output:
+            x = x.squeeze(-1)
+        return x
+
+
+class StackedMLP(nn.Module):
+    """``members`` MLPs of one shape, layers ``dense{i}`` and ``dense_out``
+    with weights ``[M, in, out]`` and biases ``[M, out]`` (flax's kernel
+    layout under ``nn.vmap``). ``forward`` takes inputs shared by every
+    member, ``[B, in]``, or one set per member, ``[M, B, in]``, and runs each
+    layer for all members as one batched product (``baddbmm``)."""
+
+    def __init__(
+        self,
+        members: int,
+        in_size: int,
+        hid_sizes: Sequence[int],
+        out_size: int = 1,
+        activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+        squeeze_output: bool = False,
+    ):
+        super().__init__()
+        if squeeze_output and out_size != 1:
+            raise ValueError("squeeze_output is only valid with out_size=1")
+        self.members = members
+        self.hid_sizes = tuple(hid_sizes)
+        self.activation = activation
+        self.squeeze_output = squeeze_output
+        size = in_size
+        for name, out in [(f"dense{i}", h) for i, h in enumerate(self.hid_sizes)] + [("dense_out", out_size)]:
+            layer = nn.Module()
+            layer.weight = nn.Parameter(torch.empty(members, size, out))
+            layer.bias = nn.Parameter(torch.zeros(members, out))
+            self.add_module(name, layer)
+            size = out
+        self.reset_parameters()
+
+    def _layers(self):
+        return [getattr(self, f"dense{i}") for i in range(len(self.hid_sizes))] + [self.dense_out]
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Each member's kernel LeCun-normal over its fan-in, biases zero."""
+        for layer in self._layers():
+            lecun_normal_(layer.weight, generator)  # fan_in is dim 1 of [M, in, out]
+            with torch.no_grad():
+                layer.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.expand(self.members, -1, -1)
+        layers = self._layers()
+        for i, layer in enumerate(layers):
+            x = torch.baddbmm(layer.bias[:, None, :], x, layer.weight)
+            if i < len(layers) - 1:
+                x = self.activation(x)
         if self.squeeze_output:
             x = x.squeeze(-1)
         return x

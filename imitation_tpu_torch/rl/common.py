@@ -82,7 +82,10 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int) 
 
 
 class Adam(torch.optim.Optimizer):
-    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, b1, b2, eps))``.
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, b1, b2, eps))``,
+    or with ``weight_decay`` ``optax.adamw(lr, b1, b2, eps, weight_decay)``:
+    the decay ``weight_decay * p`` is added to Adam's direction before the
+    learning rate scales it, for every parameter, biases included.
 
     ``lr`` is a float or a ``Schedule``. ``step()`` reads ``p.grad`` of every
     parameter, applies the update in place and returns the global norm of
@@ -97,11 +100,22 @@ class Adam(torch.optim.Optimizer):
         b2: float = 0.999,
         eps: float = 1e-8,
         max_grad_norm: Optional[float] = None,
+        weight_decay: float = 0.0,
     ):
         self.schedule = lr if callable(lr) else None
         super().__init__(list(params), dict(lr=0.0 if callable(lr) else lr, b1=b1, b2=b2, eps=eps))
         self.max_grad_norm = max_grad_norm
+        self.weight_decay = weight_decay
         self.count = 0
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """``torch.optim.Optimizer``'s state plus this class's own
+        attributes, so that a copy (``copy.deepcopy``) steps as the
+        original does."""
+        state = super().__getstate__()
+        state.update(schedule=self.schedule, max_grad_norm=self.max_grad_norm,
+                     weight_decay=self.weight_decay, count=self.count)
+        return state
 
     @property
     def learning_rate(self) -> float:
@@ -138,12 +152,14 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(nus, b2)
         torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-        # p += -lr * (mu/bc1) / (sqrt(nu/bc2) + eps)
+        # p += -lr * ((mu/bc1) / (sqrt(nu/bc2) + eps) + weight_decay * p)
         denom = torch._foreach_div(nus, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, group["eps"])
         upd = torch._foreach_div(mus, bc1)
         torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(params, self.weight_decay))
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
         return norm

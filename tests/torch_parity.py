@@ -269,3 +269,44 @@ def inject_resets(monkeypatch, venv, state_x):
         return obs_of(x), x
 
     monkeypatch.setattr(venv.env, "reset", reset)
+
+
+def fixed_resets(monkeypatch, jax_env_cls, venv, x0):
+    """Makes every reset, in both packages (auto-resets included), start
+    from the env state ``x0`` (an ``ArrayState`` vector such as Pendulum's
+    ``[th, thdot]``), so episodes that end mid-rollout restart alike."""
+    from imitation_tpu.envs.classic import ArrayState
+
+    x0 = np.asarray(x0, np.float32)
+    monkeypatch.setattr(jax_env_cls, "reset", lambda self, key: (
+        self.obs_of(ArrayState(x=jnp.asarray(x0))), ArrayState(x=jnp.asarray(x0))))
+    obs_of = type(venv.env).obs_of
+
+    def reset(n, generator):
+        x = torch.from_numpy(np.tile(x0, (n, 1)))
+        return obs_of(x), x
+
+    monkeypatch.setattr(venv.env, "reset", reset)
+
+
+def jax_explore_draws(key, num_steps, space, num_envs, act_dim):
+    """The draws of ``num_steps`` steps of the JAX package's
+    ``ExplorationWrapper.collect`` from ``key`` under a Gaussian policy
+    (imitation_tpu/policies/exploration_wrapper.py ``step_fn``): per step
+    the policy's noise ``[B, act_dim]`` and the mixture's (random actions,
+    switch uniforms, new-mode uniforms)."""
+    noise, mix = [], []
+    for step_key in jax.random.split(key, num_steps):
+        k_act, k_rand, k_switch, k_new = jax.random.split(step_key, 4)
+        noise.append(np.asarray(jax.random.normal(k_act, (num_envs, act_dim))))
+        mix.append((np.asarray(jax.vmap(space.sample)(jax.random.split(k_rand, num_envs))),
+                    np.asarray(jax.random.uniform(k_switch, (num_envs,))),
+                    np.asarray(jax.random.uniform(k_new, (num_envs,)))))
+    return noise, mix
+
+
+def jax_rollout_noise(key, num_steps, num_envs, act_dim):
+    """The Gaussian policy noise of ``num_steps`` steps of the JAX package's
+    ``rollout.collect`` from ``key`` (``k_act, _ = split(step_key)``)."""
+    return [np.asarray(jax.random.normal(jax.random.split(k)[0], (num_envs, act_dim)))
+            for k in jax.random.split(key, num_steps)]
