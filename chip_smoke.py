@@ -12,8 +12,8 @@ Phases, each timed and printed on its own line:
 3. kernels: holds each kernel against its plain PyTorch version at the main
    paths' shapes and at edge shapes. B1 GAE allclose at rtol = atol = 1e-5
    (it composes segments of the scan, so it sums in another order), printing
-   its grid at each shape; the main paths' [128, 1024], [256, 8], [64, 32]
-   and [128, 8] with float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
+   its grid at each shape; the main paths' [128, 1024], [256, 8], [64, 32],
+   [128, 8] and [64, 16] with float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
    the latter also at the CLI defaults' sizes, each four fields in one
    launch; the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
@@ -21,8 +21,8 @@ Phases, each timed and printed on its own line:
    out-of-range indices. Times each kernel and its plain version and, for
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
-   [2048, 4096], the CLI's [256, 8] and the RLHF paths' [64, 32] and
-   [128, 8], B2 per disc step (the CLI defaults'
+   [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
+   [128, 8] and density's [64, 16], B2 per disc step (the CLI defaults'
    included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
@@ -100,6 +100,35 @@ Phases, each timed and printed on its own line:
    SAC lr 3e-4, train_freq 64, batch 64, learning_starts 100, (256, 256)
    nets, a ``NormalizedRewardNet`` over a ``BasicRewardNet``), cut to 2
    iterations, 4,000 timesteps and 80 comparisons: no kernel.
+20. mceirl_random_mdp: benchmarking/run_small_algos.py's MCE IRL run in
+   full (random_mdp(16, 4, horizon=16, seed=0), the expert's occupancy,
+   ``MCEIRL(linf_eps=1e-4).train(max_iter=2000)``), logging through
+   ``configure(tmpdir, ["stdout", "csv", "json", "log"])``: iterations,
+   ms per iteration, the occupancy gap (asserted within 2e-2), the exact
+   learned and expert returns, one progress.csv and progress.json row per
+   ``log_interval`` (asserted); the first 50 iterations on the card
+   against the CPU from the same weights; kernel launches and host reads
+   per iteration; 3,000 sampled expert episodes against the occupancy.
+21. mceirl_large: random_mdp(1024, 8, horizon=32) (T is 33.5 MB float32):
+   the occupancy on the card against the CPU, then 200 iterations: ms per
+   iteration, launches and host reads per iteration, T's bytes per second.
+22. density_pendulum: run_small_algos.py's density run at its widths (16
+   envs, the scripted expert's 20+ episodes, STATE_ACTION_DENSITY,
+   bandwidth 0.5; PPO n_steps 64, 8 minibatches x 10 epochs, lr 3e-4,
+   gamma 0.95), cut to 16,384 timesteps (16 PPO iterations): the KDE
+   reward on the card against a CPU copy for each density type and for
+   non-stationary density, expert above random transitions, B1 launched
+   once per iteration at [64, 16], s per iteration, one profiled
+   iteration, the true return over 50 episodes before and after.
+23. checkpoint: ``save_state`` after one PPO iteration (the rl phase's
+   configuration on 8 envs) and one SAC round, ``restore_state`` into a
+   fresh ``init_state()``, one more step: the weights against the
+   uninterrupted run's (bitwise equality printed).
+
+The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
+at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
+next-state frequencies within 5 binomial standard deviations of T, one
+truncation per episode at the horizon.
 
 The RLHF phases print seconds per iteration (the first holds the long
 initial reward training), the last iteration under torch.profiler split by
@@ -130,7 +159,7 @@ the SAC and SQIL phases.
 
 Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
 airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
-pebble_pendulum) is driven with the kernels' launch counts set to 0 just
+pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum) is driven with the kernels' launch counts set to 0 just
 before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
@@ -255,14 +284,15 @@ def check_kernels(torch, dev):
                        f"grid {gae.launch_shape(T, B)}")
         return err
 
-    # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's
-    # and the RLHF CLI's PPO iterations
-    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8))
+    # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
+    # the RLHF CLI's and density's PPO iterations
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl), [256, 8]
-    # (airl_cli), [64, 32] (rlhf_pendulum) and [128, 8] (rlhf_active_pendulum);
-    # then the HalfCheetah path's, edge shapes and a large one.
-    main = ((128, 1024), (256, 8), (64, 32), (128, 8))
+    # (airl_cli), [64, 32] (rlhf_pendulum), [128, 8] (rlhf_active_pendulum) and
+    # [64, 16] (density_pendulum); then the HalfCheetah path's, edge shapes and a
+    # large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -310,6 +340,7 @@ def check_kernels(torch, dev):
         airl_cli=dict(gae_rows[(256, 8)], shape="[256, 8] f32 x5 -> x2"),
         rlhf=dict(gae_rows[(64, 32)], shape="[64, 32] f32 x5 -> x2"),
         rlhf_cli=dict(gae_rows[(128, 8)], shape="[128, 8] f32 x5 -> x2"),
+        density=dict(gae_rows[(64, 16)], shape="[64, 16] f32 x5 -> x2"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -1537,6 +1568,414 @@ def run_rlhf(torch, phase, loop, total_timesteps, total_comparisons, cuts):
     return launches, per_iter
 
 
+def run_tabular_env(torch, dev, n=1024, steps=64):
+    """``TabularMDP`` through ``VectorEnv`` on the card: ``random_mdp(64, 4,
+    horizon=32)`` at ``n`` envs under uniform random actions for ``steps``
+    steps. Every (s, a, s') is counted; each next-state frequency must lie
+    within 5 binomial standard deviations of ``T[s, a, s']`` (exactly 0
+    where ``T`` is 0), and every env must truncate once per episode, at the
+    horizon, and never terminate."""
+    import numpy as np
+
+    from imitation_tpu_torch.envs.tabular import random_mdp
+    from imitation_tpu_torch.envs.vector import VectorEnv
+
+    t0 = time.perf_counter()
+    env = random_mdp(64, 4, horizon=32, seed=0)
+    S, A, H = env.n_states, env.n_actions, env.horizon
+    venv = VectorEnv(env, n, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = venv.reset(g)
+    counts = torch.zeros(S * A * S, dtype=torch.float64, device=dev)
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+    n_trunc, n_term = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+    at_horizon = torch.ones((), dtype=torch.bool, device=dev)
+    for _ in range(steps):
+        s = state.env_state[:, 0]
+        a = torch.randint(0, A, (n,), generator=g, device=dev)
+        state, out = venv.step(state, a)
+        s_next = out.terminal_obs.argmax(-1)  # one-hot observations
+        counts.index_add_(0, (s * A + a) * S + s_next, ones)
+        n_trunc += out.truncated.sum()
+        n_term += out.terminated.sum()
+        at_horizon &= (out.truncated == (out.episode_length == H)).all()
+    counts = counts.view(S, A, S).cpu().numpy()
+    n_sa = counts.sum(-1, keepdims=True)
+    freq = counts / np.maximum(n_sa, 1)
+    p = env.transition_matrix.astype(np.float64)
+    sigma = np.sqrt(p * (1 - p) / np.maximum(n_sa, 1))
+    seen = np.broadcast_to(n_sa > 0, p.shape)
+    dev_abs = np.abs(freq - p)
+    z = float((dev_abs[seen & (sigma > 0)] / sigma[seen & (sigma > 0)]).max())
+    n_trunc, n_term = int(n_trunc), int(n_term)
+    log("envs", f"TabularMDP random_mdp(64, 4, horizon=32) x{n}: {steps} steps under random actions, "
+                f"{int(n_sa.sum())} transitions over {int((n_sa > 0).sum())} of {S * A} (s, a) pairs "
+                f"(fewest {int(n_sa[n_sa > 0].min())}): next-state frequencies against T at most {z:.3f} "
+                f"binomial standard deviations (limit 5), none where T is 0: "
+                f"{bool((counts[p == 0] == 0).all())}; {n_term} terminations, {n_trunc} truncations "
+                f"(horizon {H}); {time.perf_counter() - t0:.2f} s")
+    if not (z <= 5.0 and (counts[p == 0] == 0).all()):
+        raise AssertionError("TabularMDP: next-state frequencies disagree with the transition matrix")
+    if n_term or n_trunc != n * (steps // H) or not bool(at_horizon):
+        raise AssertionError(f"TabularMDP: {n_term} terminations, {n_trunc} truncations; expected "
+                             f"none and {n * (steps // H)}, each at the horizon")
+
+
+def expected_return(env, pi) -> float:
+    """Exact expected true return of a time-dependent policy, in float64
+    (benchmarking/run_small_algos.py ``expected_return``)."""
+    import numpy as np
+
+    d = env.initial_state_dist.astype(np.float64)
+    T = env.transition_matrix.astype(np.float64)
+    R = env.reward_matrix.astype(np.float64)
+    pi = np.asarray(pi, np.float64)
+    total = 0.0
+    for t in range(env.horizon):
+        total += float(d @ R)
+        d = np.einsum("sa,sap->p", d[:, None] * pi[t], T)
+    return total
+
+
+def mce_iteration_costs(torch, dev, env, demo, n=10):
+    """Host reads (synchronizing CUDA calls) and kernel launches per
+    ``MCEIRL`` iteration: the counts of ``train(max_iter=2n)`` less those
+    of ``train(max_iter=n)``, over n, so the final partition and copy to
+    the host cancel. Thresholds are out of reach so no run stops early."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imitation_tpu_torch.algorithms.mce_irl import MCEIRL
+
+    runs = []
+    for iters in (n, 2 * n):
+        probe = MCEIRL(demo, env, linf_eps=0.0, grad_l2_eps=0.0, log_interval=None,
+                       custom_logger=make_logger(), device=dev)
+        probe.train(max_iter=1)  # warm-up
+        _, syncs = count_syncs(torch, lambda: probe.train(max_iter=iters))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            probe.train(max_iter=iters)
+            torch.cuda.synchronize()
+        runs.append((len(syncs), sum(c for c, _ in kernel_times(prof).values()), syncs))
+    return (runs[1][0] - runs[0][0]) / n, (runs[1][1] - runs[0][1]) / n, sorted(set(runs[1][2]))
+
+
+def mce_cpu_check(torch, phase, make, iters=50):
+    """The first ``iters`` iterations of ``make(device)`` on the card and
+    on the CPU from the same weights (the card's initial net), both
+    thresholds out of reach and every iteration logged: the logged
+    occupancy gap and gradient norm of every iteration within 1e-4
+    relative, and the weights within 1e-4 of the largest update (the CPU
+    tests' tolerances against the JAX package)."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = make(device)
+        if device == "cpu":
+            trainer.reward_net.load_state_dict(init)
+        else:
+            init = {k: v.detach().cpu().clone() for k, v in trainer.reward_net.state_dict().items()}
+        trainer.train(max_iter=iters)
+        rows = [(r["linf_delta"], r["grad_norm"]) for r in trainer.logger.rows]
+        runs[device] = (rows, {k: v.detach().cpu() for k, v in trainer.reward_net.state_dict().items()})
+    (card_rows, card_w), (cpu_rows, cpu_w) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for x, y in zip(card_rows, cpu_rows) for a, b in zip(x, y))
+    upd = max((cpu_w[k] - init[k]).abs().max().item() for k in init)
+    err = max((card_w[k] - cpu_w[k]).abs().max().item() for k in init)
+    log(phase, f"first {iters} iterations on the card against the CPU from the same weights: logged "
+               f"linf/grad_norm max relative diff {rel:.3g} (limit 1e-4), weights max abs diff {err:.3g} "
+               f"against the largest update {upd:.3g} (limit 1e-4 of it)")
+    if len(card_rows) != iters or len(cpu_rows) != iters or rel > 1e-4 or err > 1e-4 * upd:
+        raise AssertionError(f"{phase}: the card's MCE IRL iterations disagree with the CPU's")
+
+
+def run_mceirl_random_mdp(torch, dev):
+    """benchmarking/run_small_algos.py:108-146 in full: random_mdp(16, 4,
+    horizon=16, seed=0), the expert's pi from ``mce_partition_fh``,
+    ``MCEIRL(D_demo, env, linf_eps=1e-4).train(max_iter=2000)``, logging
+    through ``configure(tmpdir, ["stdout", "csv", "json", "log"])``."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import mce_irl
+    from imitation_tpu_torch.envs.tabular import random_mdp
+    from imitation_tpu_torch.util.logger import configure
+
+    phase = "mceirl_random_mdp"
+    env = random_mdp(16, 4, horizon=16, seed=0)
+    _, _, pi_expert = mce_irl.mce_partition_fh(env, device=dev)
+    _, D_demo = mce_irl.mce_occupancy_measures(env, pi=pi_expert)
+    with tempfile.TemporaryDirectory() as tmp:
+        logger = configure(tmp, ["stdout", "csv", "json", "log"])
+        trainer = mce_irl.MCEIRL(D_demo, env, linf_eps=1e-4, custom_logger=logger, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.train(max_iter=2000)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = counts()
+        logger.close()
+        iters = trainer.optimizer.count
+        with open(os.path.join(tmp, "progress.csv"), newline="") as f:
+            csv_rows = list(csv.DictReader(f))
+        with open(os.path.join(tmp, "progress.json")) as f:
+            json_rows = [json.loads(line) for line in f]
+        has_log = os.path.getsize(os.path.join(tmp, "log.txt")) > 0
+    want_rows = len(range(0, iters, trainer.log_interval))
+    _, D_learned = mce_irl.mce_occupancy_measures(env, pi=trainer.policy.pi, device=dev)
+    gap = (D_learned - D_demo).abs().max().item()
+    ret_learned, ret_expert = expected_return(env, trainer.policy.pi), expected_return(env, pi_expert.cpu())
+    log(phase, f"{iters} iterations in {elapsed:.3f} s ({elapsed / iters * 1e3:.3f} ms per iteration); "
+               f"OM linf gap {gap:.3g} (limit 2e-2); exact return learned {ret_learned:.6g}, expert "
+               f"{ret_expert:.6g}; launches {launches}; progress.csv {len(csv_rows)} rows, progress.json "
+               f"{len(json_rows)} rows (one per log_interval {trainer.log_interval}: {want_rows}), "
+               f"log.txt written: {has_log}")
+    if gap > 2e-2:
+        raise AssertionError(f"{phase}: learned occupancy {gap} from the demonstrations'")
+    if len(csv_rows) != want_rows or len(json_rows) != want_rows or not has_log:
+        raise AssertionError(f"{phase}: {len(csv_rows)} csv and {len(json_rows)} json rows, expected {want_rows}")
+    if [int(r["iteration"]) for r in csv_rows] != [r["iteration"] for r in json_rows] != list(
+            range(0, iters, trainer.log_interval)):
+        raise AssertionError(f"{phase}: logged iterations differ between progress.csv and progress.json")
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: MCE IRL launched a kernel of the port: {launches}")
+
+    mce_cpu_check(torch, phase, lambda device: mce_irl.MCEIRL(
+        D_demo.to(device), env, linf_eps=0.0, grad_l2_eps=0.0, log_interval=1,
+        custom_logger=make_logger(), device=device))
+    reads, per_iter, where = mce_iteration_costs(torch, dev, env, D_demo)
+    log(phase, f"per iteration: {per_iter:g} kernel launches, {reads:g} host reads ({', '.join(where)})")
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    trajs = mce_irl.sample_tabular_trajectories(env, pi_expert, 3000, g)
+    visits = np.zeros(env.n_states)
+    for t in trajs:
+        np.add.at(visits, np.argmax(t.obs[:-1], axis=-1), 1)
+    mc_gap = float(np.abs(visits / len(trajs) - D_demo.cpu().numpy()).max())
+    log(phase, f"sample_tabular_trajectories: 3000 episodes of the expert in {time.perf_counter() - t0:.2f} s; "
+               f"visit frequencies against D: max abs diff {mc_gap:.4g} (limit 0.15, the JAX package's test)")
+    if mc_gap > 0.15:
+        raise AssertionError(f"{phase}: sampled visits disagree with the occupancy measure")
+    return elapsed / iters
+
+
+def run_mceirl_large(torch, dev, iters=200):
+    """MCE IRL at random_mdp(1024, 8, horizon=32): T[S, A, S] float32 is
+    33.5 MB, read twice per horizon step of each iteration (the backward
+    and the forward pass). The card's occupancy is held against the CPU's
+    within 4x the CPU's own float32 floor (its distance from a float64
+    forward pass)."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import mce_irl
+    from imitation_tpu_torch.envs.tabular import random_mdp
+
+    phase = "mceirl_large"
+    t0 = time.perf_counter()
+    env = random_mdp(1024, 8, horizon=32, seed=0)
+    build = time.perf_counter() - t0
+    _, _, pi = mce_irl.mce_partition_fh(env, device=dev)
+    _, D_card = mce_irl.mce_occupancy_measures(env, pi=pi)
+    pi_cpu = pi.cpu()
+    _, D_cpu = mce_irl.mce_occupancy_measures(env, pi=pi_cpu)
+    d = env.initial_state_dist.astype(np.float64)
+    D64 = d.copy()
+    T64, pi64 = env.transition_matrix.astype(np.float64), pi_cpu.numpy().astype(np.float64)
+    for t in range(env.horizon - 1):
+        d = np.einsum("sa,sat->t", d[:, None] * pi64[t], T64)
+        D64 += d
+    floor = float(np.abs(D_cpu.numpy() - D64).max())
+    err = (D_card.cpu() - D_cpu).abs().max().item()
+    tol = max(4 * floor, 1e-7)
+    log(phase, f"random_mdp(1024, 8, horizon=32) built in {build:.2f} s (T {env.transition_matrix.nbytes / 1e6:.1f} MB); "
+               f"occupancy card vs CPU max abs diff {err:.3g} (limit {tol:.3g}: 4x the CPU's float32 floor "
+               f"{floor:.3g} against float64)")
+    if err > tol:
+        raise AssertionError(f"{phase}: the card's occupancy measure disagrees with the CPU's")
+    trainer = mce_irl.MCEIRL(D_card, env, linf_eps=0.0, grad_l2_eps=0.0, custom_logger=make_logger(), device=dev)
+    trainer.train(max_iter=1)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.train(max_iter=iters)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = counts()
+    reads, per_iter, where = mce_iteration_costs(torch, dev, env, D_card)
+    t_bytes = 2 * (env.horizon - 1) * env.transition_matrix.nbytes
+    s_iter = elapsed / iters
+    log(phase, f"{iters} iterations in {elapsed:.3f} s ({s_iter * 1e3:.3f} ms per iteration): {per_iter:g} "
+               f"kernel launches and {reads:g} host reads per iteration ({', '.join(where)}); T read "
+               f"{t_bytes / 1e9:.3f} GB per iteration = {t_bytes / s_iter / 1e9:.1f} GB/s "
+               f"({100 * t_bytes / s_iter / HBM_BYTES_PER_S:.1f}% of HBM); launches {launches}; last gap "
+               f"{trainer.logger.rows[-1]['linf_delta']:.3g}")
+    if any(launches.values()) or not all(bool(torch.isfinite(p).all()) for p in trainer.reward_net.parameters()):
+        raise AssertionError(f"{phase}: a port kernel launched ({launches}) or non-finite weights")
+    return s_iter
+
+
+def kde_cpu_check(torch, phase, demos, venv, cfg):
+    """The KDE reward on the card against a CPU copy (same demonstrations,
+    fitted alike) for each density type and for non-stationary density,
+    on the demonstrations' own transitions (the first 4096): within 4x the
+    CPU's own float32 floor (its distance from the same KDE in float64),
+    or 1e-5."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import density
+    from imitation_tpu_torch.data import rollout
+    from imitation_tpu_torch.envs import make_vec_env
+
+    flat = rollout.flatten_trajectories(demos)
+    obs, acts, next_obs = (np.asarray(x[:4096]) for x in (flat.obs, flat.acts, flat.next_obs))
+    dones = np.zeros(len(obs), np.float32)
+    cpu_venv = make_vec_env("Pendulum-v1", num_envs=venv.num_envs, device="cpu")
+    for kind, stationary in (("STATE_DENSITY", True), ("STATE_ACTION_DENSITY", True),
+                             ("STATE_STATE_DENSITY", True), ("STATE_ACTION_DENSITY", False)):
+        algos = [density.DensityAlgorithm(demonstrations=demos, venv=v, density_type=density.DensityType[kind],
+                                          is_stationary=stationary, rl_config=cfg, custom_logger=make_logger())
+                 for v in (venv, cpu_venv)]
+        for a in algos:
+            a.train()
+        t0 = time.perf_counter()
+        got = algos[0](obs, acts, next_obs, dones)
+        card_s = time.perf_counter() - t0
+        want = algos[1](obs, acts, next_obs, dones)
+        p = algos[1]._reward_params()
+        x = algos[1]._flatten(*(torch.from_numpy(v).double() for v in (obs, acts, next_obs)))
+        x = (x - p["scale_mean"].double()) / p["scale_std"].double()
+        logs = density.gaussian_kde_logpdf(x, p["data"].double(), algos[1].kernel_bandwidth)
+        m = logs.shape[0]
+        ref = logs[0] if m == 1 else torch.logsumexp(logs, dim=0) - math.log(m)
+        floor = float(np.abs(want - ref.numpy()).max())
+        err = float(np.abs(got - want).max())
+        tol = max(4 * floor, 1e-5)
+        log(phase, f"KDE {kind} {'stationary' if stationary else 'non-stationary'} (data "
+                   f"{tuple(p['data'].shape)}): card vs CPU on {len(obs)} transitions max abs diff {err:.3g} "
+                   f"(limit {tol:.3g}: 4x the CPU's float32 floor {floor:.3g}); card call {card_s * 1e3:.2f} ms; "
+                   f"reward mean {float(got.mean()):.4g}")
+        if not err <= tol:
+            raise AssertionError(f"{phase}: the card's KDE reward disagrees with the CPU's ({kind})")
+
+
+def run_density(torch, dev, num_envs=16, timesteps=16_384):
+    """benchmarking/run_small_algos.py:79-105 at its widths: 16 envs, the
+    scripted expert's episodes (``min_episodes=20``), STATE_ACTION_DENSITY,
+    bandwidth 0.5, standardised, stationary; PPO n_steps 64, 8 minibatches x
+    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 16,384 timesteps."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import density
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    phase = "density_pendulum"
+    iterations = math.ceil(timesteps / (64 * num_envs))
+    log(phase, f"cut: {timesteps:,} timesteps instead of 500,000 ({iterations} PPO iterations of 64 x {num_envs})")
+    demos, _ = expert_demos(torch, phase, "Pendulum-v1", num_envs, 20, dev)
+    venv = make_vec_env("Pendulum-v1", num_envs=num_envs, device=dev)
+    cfg = PPOConfig(n_steps=64, n_minibatches=8, n_epochs=10, learning_rate=3e-4, gamma=0.95, gae_lambda=0.95)
+    kde_cpu_check(torch, phase, demos, venv, cfg)
+    algo = density.DensityAlgorithm(demonstrations=demos, venv=venv, rl_config=cfg,
+                                    custom_logger=make_logger(), seed=0)
+    algo.train()
+    t = demos[0]
+    expert = algo(t.obs[:-1], t.acts, t.obs[1:], np.zeros(len(t)))
+    noise_obs = np.random.default_rng(0).uniform(-5, 5, (len(t), 3)).astype(np.float32)
+    noise_act = np.random.default_rng(1).uniform(-2, 2, (len(t), 1)).astype(np.float32)
+    noise = algo(noise_obs, noise_act, noise_obs, np.zeros(len(t)))
+    log(phase, f"KDE reward of an expert episode {expert.mean():.4g}, of random transitions {noise.mean():.4g}")
+    if not expert.mean() > noise.mean() + 1.0:
+        raise AssertionError(f"{phase}: expert transitions should score above random ones")
+    algo.rl_state = algo.rl_algo.init_state()
+    before = algo.test_policy(n_trajectories=50)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    algo.train_policy(n_timesteps=timesteps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = counts()
+    after = algo.test_policy(n_trajectories=50)
+    log(phase, f"train_policy: {algo.rl_state.n_updates} PPO iterations in {elapsed:.3f} s "
+               f"({elapsed / iterations:.3f} s per iteration); launches {launches}; true return over 50 "
+               f"episodes before {before['return_mean']:.6g}, after {after['return_mean']:.6g}")
+    if launches != {"gae": iterations, "assemble_rows": 0}:
+        raise AssertionError(f"{phase}: launches {launches}, expected {iterations} GAE and no B2")
+    if not all(bool(torch.isfinite(p).all()) for p in algo.policy.parameters()):
+        raise AssertionError(f"{phase}: non-finite policy parameters")
+    ranges = ("ppo.collect", "ppo.process_chunk")
+    params = algo._reward_params()
+    host, dev_t, per_name, wall = profile_ranges(
+        torch, lambda: algo.rl_algo.train_step(algo.rl_state, params), ranges)
+    busy = sum(us for _, us in per_name.values()) / 1e6
+    log("profile", f"{phase} one more PPO iteration by range (host ms / kernels / kernel ms): " + ", ".join(
+        f"{p} {host[p] / 1e3:.1f} / " + (f"{dev_t[p][0]} / {dev_t[p][1] / 1e3:.2f}" if dev_t else "not measured")
+        for p in ranges) + f"; kernel time {busy:.4f} s in {sum(c for c, _ in per_name.values())} kernels = "
+        f"{100 * busy / (elapsed / iterations):.1f}% of an unprofiled iteration (profiled {wall:.3f} s)")
+    return launches, elapsed / iterations
+
+
+def run_checkpoint(torch, dev):
+    """``save_state`` after one PPO iteration (the rl phase's
+    configuration on 8 envs) and after one SAC round (the sac phase's
+    widths, learning_starts 0), ``restore_state`` into a fresh learner's
+    ``init_state()``, one more step: the weights against the uninterrupted
+    run's. They must agree within 1e-6 of the step's largest update; the
+    line says whether they are equal bit for bit."""
+    import tempfile
+
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+    from imitation_tpu_torch.util import checkpoint
+
+    def ppo():
+        venv = make_vec_env("Pendulum-v1", num_envs=8, device=dev)
+        return PPO(venv, ActorCriticPolicy(venv.observation_space, venv.action_space),
+                   PPOConfig(n_steps=128, n_minibatches=32, n_epochs=5, lr_schedule="linear",
+                             total_updates_hint=4), seed=0)
+
+    def sac():
+        venv = make_vec_env("Pendulum-v1", num_envs=8, device=dev)
+        return SAC(venv, SACConfig(learning_starts=0, batch_size=256, train_freq=16, gradient_steps=16,
+                                   buffer_size=100_000, learning_rate=3e-4), seed=0)
+
+    def weights(state):
+        mods = [state.policy] if hasattr(state, "policy") else [state.actor, state.critic, state.target_critic]
+        return {f"{i}.{k}": v.detach().clone() for i, m in enumerate(mods) for k, v in m.state_dict().items()}
+
+    for name, make in (("ppo", ppo), ("sac", sac)):
+        algo = make()
+        state = algo.train_step(algo.init_state())[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.pt")
+            t0 = time.perf_counter()
+            checkpoint.save_state(path, state)
+            save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+            first = weights(state)
+            want = weights(algo.train_step(state)[0])
+            fresh = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = checkpoint.restore_state(path, fresh.init_state())
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            got = weights(fresh.train_step(restored)[0])
+        bitwise = all(torch.equal(got[k], v) for k, v in want.items())
+        err = max((got[k] - v).abs().max().item() for k, v in want.items())
+        upd = max((v - first[k]).abs().max().item() for k, v in want.items())
+        log("checkpoint", f"{name}: save {save_s * 1e3:.1f} ms ({size / 1e6:.2f} MB), restore "
+                          f"{restore_s * 1e3:.1f} ms; one more step after the restore against the "
+                          f"uninterrupted run: bitwise equal {bitwise}, max abs diff {err:.3g} "
+                          f"(largest update {upd:.3g}, limit 1e-6 of it)")
+        if restored.generator is not restored.env_state.generator or not err <= 1e-6 * upd:
+            raise AssertionError(f"checkpoint: {name} resumed run differs from the uninterrupted one")
+
+
 def main() -> int:
     import torch
 
@@ -1568,6 +2007,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     run_envs(torch, dev)
+    run_tabular_env(torch, dev)
     log("envs", f"done in {time.perf_counter() - t0:.2f} s")
 
     paths = {}
@@ -1650,6 +2090,21 @@ def main() -> int:
         t0 = time.perf_counter()
         paths[phase], _ = run_rlhf(torch, phase, make(dev), *budget, cuts)
         log(phase, f"done in {time.perf_counter() - t0:.2f} s")
+
+    # MCE IRL is dense products and reductions (no kernel of the port);
+    # density trains PPO on its KDE reward, one B1 launch per iteration at
+    # [64, 16].
+    for phase, fn in (("mceirl_random_mdp", lambda: run_mceirl_random_mdp(torch, dev)),
+                      ("mceirl_large", lambda: run_mceirl_large(torch, dev))):
+        t0 = time.perf_counter()
+        fn()
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["density_pendulum"], _ = run_density(torch, dev)
+    log("density_pendulum", f"done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    run_checkpoint(torch, dev)
+    log("checkpoint", f"done in {time.perf_counter() - t0:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

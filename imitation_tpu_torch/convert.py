@@ -74,3 +74,10 @@ def q_network_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     """``QNetwork`` variables -> ``rl.dqn.QNetwork`` state_dict (``dense{i}``,
     ``q_out``)."""
     return flax_to_state_dict(variables)
+
+
+def tabular_reward_net_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """MCE IRL reward-net variables -> ``algorithms.mce_irl`` state_dict:
+    ``LinearRewardNet`` (``w.weight``, no bias) or ``MLPRewardNet``
+    (``dense{i}``, ``out``)."""
+    return flax_to_state_dict(variables)

@@ -108,6 +108,9 @@ class Env(abc.ABC):
         """Returns (obs, state) for ``n`` fresh episodes on the generator's device."""
 
     @abc.abstractmethod
-    def step(self, state: Any, action: torch.Tensor) -> Tuple[Any, TimeStep]:
+    def step(self, state: Any, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[Any, TimeStep]:
         """Returns (state', TimeStep). Does NOT handle time limits: the vector
-        engine counts steps and sets ``truncated``."""
+        engine counts steps and sets ``truncated``. A stochastic env draws
+        its transitions from ``generator`` (the JAX env's per-step key);
+        a deterministic one ignores it."""

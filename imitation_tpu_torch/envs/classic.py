@@ -9,12 +9,13 @@ Angles wrap with ``torch.remainder``, the floor-mod that JAX's ``%`` is.
 Each env also has a fixed-horizon "seals-style" variant via
 ``fixed_horizon=True``: early termination is disabled and episodes always
 run to the time limit (Pendulum never terminates early either way).
+The dynamics are deterministic: ``step`` ignores its generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +64,8 @@ class CartPole(Env):
         x = u * 0.1 - 0.05  # U(-0.05, 0.05)
         return x, x
 
-    def step(self, state: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, TimeStep]:
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, TimeStep]:
         x, x_dot, theta, theta_dot = state.unbind(-1)
         force = torch.where(action == 1, self.force_mag, -self.force_mag)
         costheta = torch.cos(theta)
@@ -141,7 +143,8 @@ class Pendulum(Env):
         th, thdot = state.unbind(-1)
         return torch.stack([torch.cos(th), torch.sin(th), thdot], dim=-1)
 
-    def step(self, state: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, TimeStep]:
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, TimeStep]:
         th, thdot = state.unbind(-1)
         u = torch.clamp(action.reshape(-1), -self.max_torque, self.max_torque)
         angle_norm = _wrap_angle(th)
@@ -202,7 +205,8 @@ class MountainCar(Env):
             truncated=torch.zeros_like(terminated),
         )
 
-    def step(self, state: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, TimeStep]:
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, TimeStep]:
         position, velocity = state.unbind(-1)
         velocity = velocity + (action - 1) * self.force + torch.cos(3 * position) * (-self.gravity)
         return self._finish(position, velocity, lambda term: torch.full_like(position, -1.0))
@@ -222,7 +226,8 @@ class MountainCarContinuous(MountainCar):
     def action_space(self) -> Space:
         return Space.box(-1.0, 1.0, (1,))
 
-    def step(self, state: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, TimeStep]:
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, TimeStep]:
         position, velocity = state.unbind(-1)
         force = torch.clamp(action.reshape(-1), -1.0, 1.0)
         velocity = velocity + force * self.power - 0.0025 * torch.cos(3 * position)
@@ -302,7 +307,8 @@ class Acrobot(Env):
         ddtheta1 = -(d2 * ddtheta2 + phi1) / d1
         return torch.stack([dtheta1, dtheta2, ddtheta1, ddtheta2, torch.zeros_like(a)], dim=-1)
 
-    def step(self, state: torch.Tensor, action: torch.Tensor) -> Tuple[torch.Tensor, TimeStep]:
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, TimeStep]:
         torque = (action - 1).to(torch.float32)
         s_aug = torch.cat([state, torque[:, None]], dim=-1)
         dt = self.dt

@@ -10,6 +10,9 @@ Port of ``imitation_tpu/envs/vector.py``. Semantics kept:
 * **terminated vs truncated**: truncation at the horizon fires only when the
   step did not terminate (Gymnasium semantics).
 
+The state's generator drives the env's own step draws (a stochastic env
+such as ``envs/tabular.py``) and then the auto-resets, in that order.
+
 Unlike the JAX engine, which is pure, ``step`` here returns a new state
 object but the tensors it holds are fresh each step; nothing is mutated in
 place, so a caller may keep an old state.
@@ -100,7 +103,7 @@ class VectorEnv:
         )
 
     def step(self, state: VecEnvState, actions: torch.Tensor) -> Tuple[VecEnvState, VecStep]:
-        new_env_state, ts = self.env.step(state.env_state, actions)
+        new_env_state, ts = self.env.step(state.env_state, actions, state.generator)
         t = state.t + 1
         truncated = ts.truncated
         if self.max_episode_steps is not None:

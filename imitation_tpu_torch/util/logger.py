@@ -1,17 +1,30 @@
 """Hierarchical metrics logger with accumulate-means contexts.
 
-A copy of the subset of ``imitation_tpu/util/logger.py`` that the trainers
-use: ``record``, ``record_mean``, ``accumulate_means``, ``dump``, ``warn`` and
-``info``, writing to stdout. Inside an ``accumulate_means(name)`` context
-raw values go to a per-context sub-logger while running means accumulate
-into ``mean/{name}/{key}`` of the default logger, flushed at the next
-default ``dump``. No files are written.
+Port of ``imitation_tpu/util/logger.py``:
+
+* ``record(key, value)`` writes to the active context. Inside an
+  ``accumulate_means(name)`` context, raw values go to a per-context
+  sub-logger (``raw/{prefixes}/{name}`` under the log folder, with the same
+  formats) while running means accumulate into ``mean/{prefixes}/{name}/{key}``
+  of the default logger, flushed at the next default ``dump``.
+* ``add_key_prefix`` / ``add_accumulate_prefix`` context managers.
+* Output formats: ``stdout`` (a table), ``log`` (the same table in
+  ``log.txt``), ``csv`` (``progress.csv``, with columns added as new keys
+  appear and the header rewritten) and ``json`` (``progress.json``, one
+  object per dump). The TensorBoard and W&B writers of the JAX package are
+  not ported: they need ``tensorboardX`` and ``wandb``, which the GPU
+  machine lacks, so asking for them raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
+import datetime
+import json
+import os
 import sys
+import tempfile
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence, TextIO
 
@@ -19,6 +32,9 @@ from typing import Any, Dict, List, Optional, Sequence, TextIO
 class KVWriter:
     def write(self, kvs: Dict[str, Any], step: int) -> None:
         raise NotImplementedError
+
+    def close(self) -> None:
+        pass
 
 
 class HumanOutputFormat(KVWriter):
@@ -42,20 +58,96 @@ class HumanOutputFormat(KVWriter):
         self.file.write("\n".join(lines) + "\n")
         self.file.flush()
 
+    def close(self) -> None:
+        if self.file not in (sys.stdout, sys.stderr):
+            self.file.close()
+
     @staticmethod
     def _trunc(s: str, maxlen: int = 40) -> str:
         return s[: maxlen - 3] + "..." if len(s) > maxlen else s
 
 
-class _Logger:
-    """A flat key-value logger instance."""
+class CSVOutputFormat(KVWriter):
+    """``progress.csv``: one row per dump. A key not seen before adds a
+    column: the file is rewritten with the new header and earlier rows
+    padded with empty cells."""
 
-    def __init__(self, output_formats: Sequence[KVWriter]):
+    def __init__(self, filename: str):
+        self.filename = filename
+        self.keys: List[str] = []
+        self.file = open(filename, "w", newline="")
+
+    def write(self, kvs: Dict[str, Any], step: int) -> None:
+        extra = [k for k in sorted(kvs.keys()) if k not in self.keys]
+        if extra:
+            self.keys.extend(extra)
+            self.file.close()
+            with open(self.filename, newline="") as f:
+                rows = list(csv.reader(f))
+            old_header, old_rows = (rows[0], rows[1:]) if rows else ([], [])
+            self.file = open(self.filename, "w", newline="")
+            writer = csv.writer(self.file)
+            writer.writerow(self.keys)
+            for row in old_rows:
+                mapping = dict(zip(old_header, row))
+                writer.writerow([mapping.get(k, "") for k in self.keys])
+        csv.writer(self.file).writerow([kvs.get(k, "") for k in self.keys])
+        self.file.flush()
+
+    def close(self) -> None:
+        self.file.close()
+
+
+class JSONOutputFormat(KVWriter):
+    """``progress.json``: one JSON object per dump, with its ``_step``."""
+
+    def __init__(self, filename: str):
+        self.file = open(filename, "w")
+
+    def write(self, kvs: Dict[str, Any], step: int) -> None:
+        rec = dict(kvs)
+        rec["_step"] = step
+        self.file.write(json.dumps(rec, default=float) + "\n")
+        self.file.flush()
+
+    def close(self) -> None:
+        self.file.close()
+
+
+_NOT_PORTED = {
+    "tensorboard": "the TensorBoard writer needs tensorboardX",
+    "wandb": "the W&B writer needs wandb",
+}
+
+
+def make_output_format(fmt: str, folder: str) -> KVWriter:
+    if fmt in _NOT_PORTED:
+        raise ValueError(
+            f"format {fmt!r} is not ported: {_NOT_PORTED[fmt]}, which the port may not "
+            "import (the GPU machine lacks it); use stdout, log, csv or json"
+        )
+    os.makedirs(folder, exist_ok=True)
+    if fmt == "stdout":
+        return HumanOutputFormat(sys.stdout)
+    if fmt == "log":
+        return HumanOutputFormat(open(os.path.join(folder, "log.txt"), "w"))
+    if fmt == "csv":
+        return CSVOutputFormat(os.path.join(folder, "progress.csv"))
+    if fmt == "json":
+        return JSONOutputFormat(os.path.join(folder, "progress.json"))
+    raise ValueError(f"Unknown format: {fmt}")
+
+
+class _Logger:
+    """A flat key-value logger instance (one output folder + formats)."""
+
+    def __init__(self, folder: Optional[str], output_formats: Sequence[KVWriter]):
+        self.dir = folder
         self.output_formats = list(output_formats)
         self.name_to_value: Dict[str, Any] = {}
         self.name_to_count: Dict[str, int] = defaultdict(int)
 
-    def record(self, key: str, value: Any) -> None:
+    def record(self, key: str, value: Any, exclude=None) -> None:
         self.name_to_value[key] = value
 
     def record_mean(self, key: str, value: Any) -> None:
@@ -69,6 +161,10 @@ class _Logger:
         self.name_to_value.clear()
         self.name_to_count.clear()
 
+    def close(self) -> None:
+        for fmt in self.output_formats:
+            fmt.close()
+
     def warn(self, msg: str) -> None:
         print(f"WARNING: {msg}", file=sys.stderr)
 
@@ -79,24 +175,43 @@ class _Logger:
 class HierarchicalLogger:
     """Two-tier logger with accumulate_means contexts."""
 
-    def __init__(self, default_logger: _Logger):
+    def __init__(
+        self,
+        default_logger: _Logger,
+        format_strs: Sequence[str] = ("stdout",),
+    ):
         self.default_logger = default_logger
         self._cached_loggers: Dict[str, _Logger] = {}
+        self._accumulate_prefixes: List[str] = []
+        self._key_prefixes: List[str] = []
         self._subdir: Optional[str] = None
         self._name: Optional[str] = None
+        self.format_strs = list(format_strs)
         self.current_logger: Optional[_Logger] = None
 
+    # -- context managers --------------------------------------------------
     @contextlib.contextmanager
     def accumulate_means(self, name: str):
         """Temporarily redirect record() to a sub-logger for ``name``.
 
-        Means accumulate into the default logger under ``mean/{name}/...``
-        and flush at the next default dump.
+        Raw values go to ``raw/{prefixes}/{name}``; means accumulate into the
+        default logger under ``mean/{prefixes}/{name}/...`` and flush at the
+        next default dump.
         """
         if self.current_logger is not None:
             raise RuntimeError("Nested `accumulate_means` context")
-        subdir = f"raw/{name}"
-        logger = self._cached_loggers.setdefault(subdir, _Logger([]))
+        subdir = os.path.join("raw", *self._accumulate_prefixes, name)
+        if subdir in self._cached_loggers:
+            logger = self._cached_loggers[subdir]
+        else:
+            folder = None
+            fmts: List[KVWriter] = []
+            if self.default_logger.dir is not None:
+                folder = os.path.join(self.default_logger.dir, subdir)
+                os.makedirs(folder, exist_ok=True)
+                fmts = [make_output_format(f, folder) for f in self.format_strs]
+            logger = _Logger(folder, fmts)
+            self._cached_loggers[subdir] = logger
         try:
             self.current_logger = logger
             self._subdir = subdir
@@ -107,18 +222,54 @@ class HierarchicalLogger:
             self._subdir = None
             self._name = None
 
-    def record(self, key: str, value: Any) -> None:
+    @contextlib.contextmanager
+    def add_accumulate_prefix(self, prefix: str):
+        """Prefix future accumulate_means names."""
         if self.current_logger is not None:
-            self.current_logger.record(f"{self._subdir}/{key}", value)
-            self.default_logger.record_mean(f"mean/{self._name}/{key}", value)
+            raise RuntimeError(
+                "Cannot add accumulate prefix when inside an accumulate_means context"
+            )
+        self._accumulate_prefixes.append(prefix)
+        try:
+            yield self
+        finally:
+            self._accumulate_prefixes.pop()
+
+    @contextlib.contextmanager
+    def add_key_prefix(self, prefix: str):
+        """Prefix all recorded keys."""
+        self._key_prefixes.append(prefix)
+        try:
+            yield self
+        finally:
+            self._key_prefixes.pop()
+
+    # -- recording ---------------------------------------------------------
+    def record(self, key: str, value: Any, exclude=None) -> None:
+        key = "/".join([*self._key_prefixes, key])
+        if self.current_logger is not None:
+            assert self._subdir is not None
+            self.current_logger.record("/".join([self._subdir, key]), value)
+            mean_key = "/".join(["mean", *self._accumulate_prefixes, str(self._name), key])
+            self.default_logger.record_mean(mean_key, value)
         else:
             self.default_logger.record(key, value)
 
     def record_mean(self, key: str, value: Any) -> None:
+        key = "/".join([*self._key_prefixes, key])
         (self.current_logger or self.default_logger).record_mean(key, value)
 
     def dump(self, step: int = 0) -> None:
         (self.current_logger or self.default_logger).dump(step)
+
+    @property
+    def dir(self) -> Optional[str]:
+        return self.default_logger.dir
+
+    def close(self) -> None:
+        self.default_logger.close()
+        for logger in self._cached_loggers.values():
+            logger.close()
 
     def warn(self, msg: str) -> None:
         self.default_logger.warn(msg)
@@ -127,11 +278,19 @@ class HierarchicalLogger:
         self.default_logger.info(msg)
 
 
-def configure(format_strs: Optional[Sequence[str]] = ("stdout",)) -> HierarchicalLogger:
-    """A HierarchicalLogger writing to stdout (``format_strs=()`` for none)."""
-    fmts: List[KVWriter] = []
-    for fmt in format_strs or ():
-        if fmt != "stdout":
-            raise ValueError(f"only the stdout format is ported, got {fmt!r}")
-        fmts.append(HumanOutputFormat(sys.stdout))
-    return HierarchicalLogger(_Logger(fmts))
+def configure(
+    folder: Optional[str] = None,
+    format_strs: Optional[Sequence[str]] = None,
+) -> HierarchicalLogger:
+    """Builds a HierarchicalLogger writing ``format_strs`` (default
+    ``["stdout"]``; ``()`` for none) into ``folder``, which is made if
+    missing. With no folder, a timestamped one under the temporary
+    directory."""
+    if folder is None:
+        now = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        folder = os.path.join(tempfile.gettempdir(), "imitation_tpu_torch", now)
+    if format_strs is None:
+        format_strs = ["stdout"]
+    os.makedirs(folder, exist_ok=True)
+    fmts = [make_output_format(f, folder) for f in format_strs]
+    return HierarchicalLogger(_Logger(folder, fmts), format_strs=format_strs)

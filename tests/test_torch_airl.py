@@ -185,14 +185,14 @@ def test_reward_test_fn_of_an_unshaped_net_is_the_train_fn():
     _, tdemo = _transitions("CartPole-v1", 64, seed=1)
     tr = AIRL(demonstrations=tdemo, demo_batch_size=16, venv=venv,
               reward_net=BasicRewardNet(venv.observation_space, venv.action_space),
-              gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(()))
+              gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(format_strs=()))
     assert not isinstance(tr.reward_net, ShapedRewardNet)
     targs = [torch.from_numpy(v) for k, v in _arrays("CartPole-v1", 8, 0).items() if k != "rews"]
     with torch.no_grad():
         assert torch.equal(tr.reward_test_fn()(tr.reward_net, *targs),
                            tr.reward_train_fn()(tr.reward_net, *targs))
     gail = GAIL(demonstrations=tdemo, demo_batch_size=16, venv=venv,
-                gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(()))
+                gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(format_strs=()))
     with torch.no_grad():
         assert torch.equal(gail.reward_test_fn()(gail.reward_net, *targs),
                            gail.reward_train_fn()(gail.reward_net, *targs))

@@ -249,7 +249,7 @@ def test_demonstration_checks():
                               rews=demos[0].rews[:3], infos=None, terminal=True)
     with pytest.raises(ValueError, match="different length"):
         GAIL(demonstrations=[demos[0], short], demo_batch_size=2, venv=venv,
-             gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(()))
+             gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(format_strs=()))
     with pytest.raises(ValueError, match="exceeds demonstration"):
         GAIL(demonstrations=demos, demo_batch_size=10**6, venv=venv,
-             gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(()))
+             gen_config=PPOConfig(n_steps=4, n_minibatches=2), custom_logger=configure(format_strs=()))

@@ -164,6 +164,6 @@ def test_rl_algo_choice():
     _, tdemo = _demos("CartPole-v1", 16, seed=0)
     venv = make_vec_env("CartPole-v1", num_envs=2, device="cpu")
     with pytest.raises(ValueError, match="rl_algo"):
-        SQIL(venv=venv, demonstrations=tdemo, rl_algo="ppo", custom_logger=configure(()))
+        SQIL(venv=venv, demonstrations=tdemo, rl_algo="ppo", custom_logger=configure(format_strs=()))
     with pytest.raises(ValueError, match="continuous"):
-        SQIL(venv=venv, demonstrations=tdemo, rl_algo="sac", custom_logger=configure(()))
+        SQIL(venv=venv, demonstrations=tdemo, rl_algo="sac", custom_logger=configure(format_strs=()))
