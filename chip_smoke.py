@@ -13,17 +13,20 @@ Phases, each timed and printed on its own line:
    paths' shapes and at edge shapes. B1 GAE allclose at rtol = atol = 1e-5
    (it composes segments of the scan, so it sums in another order), printing
    its grid at each shape; the main paths' [128, 1024], [256, 8], [64, 32],
-   [128, 8] and [64, 16] with float32 and with bool flag panels. B2 disc-batch assembly exactly: a GAIL
+   [128, 8], [64, 16] and [32, 8] with float32 and with bool flag panels.
+   B2 disc-batch assembly exactly: a GAIL
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
    the latter also at the CLI defaults' sizes, each four fields in one
-   launch; the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
+   launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
+   1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
+   bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
    [., 2, 2]), alone and mixed with word fields and offset bases;
    out-of-range indices. Times each kernel and its plain version and, for
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
    [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
-   [128, 8] and density's [64, 16], B2 per disc step (the CLI defaults'
-   included). ``device_ms`` is the kernel's own device
+   [128, 8], density's [64, 16] and the pixel tutorial's [32, 8], B2 per
+   disc step (the CLI defaults' and both image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -125,6 +128,38 @@ Phases, each timed and printed on its own line:
    fresh ``init_state()``, one more step: the weights against the
    uninterrupted run's (bitwise equality printed).
 
+24. gail_pixel_cartpole: GAIL on device ``PixelCartPole`` (the pixel
+   tutorial's env, examples/tutorials/t05a_preference_comparisons_cnn.py,
+   ported) at the gail phase's widths (1024 envs x 128 steps, PPO 32
+   minibatches x 5 epochs, demo batch 2048, 2 disc updates) with the
+   tutorial's (64, 64) MLP policy over the flattened pixels and a
+   ``CnnRewardNet`` at its defaults; demos are the gail phase's 128
+   scripted episodes (12,800 rows) drawn by the env's render. A warm-up
+   round, two rounds of ``train``, the reward on the card against a CPU
+   copy and one profiled round.
+25. airl_pixel_cartpole: one AIRL round on 8 pixel envs x 256 steps at the
+   JAX CLI's AIRL defaults (demo batch 1024, 4 disc updates) with
+   ``ShapedRewardNet(CnnRewardNet, BasicPotentialCNN)`` on the same demos;
+   the test reward against the train reward.
+26. rlhf_pixel_cartpole: the ported tutorial's loop (``build``: 8 envs,
+   ``CnnRewardNet(hid_channels=(8, 8))``, PPO n_steps 32) at its own
+   ``__main__`` budget (30,000 timesteps, 300 comparisons), uncut: B1 at
+   [32, 8] once per PPO iteration; the reward's fit printed (CartPole's
+   reward is 1 a step, so the synthetic preferences are coin flips), one
+   reward update on the card against a CPU copy, and a 3-member
+   ``RewardEnsemble`` of the tutorial's ``CnnRewardNet``s: fragment
+   rewards and one update on the card against the CPU.
+27. bc_nature_cnn: ``BC.train`` at the ``train_imitation bc`` defaults
+   (batch 32, ent 1e-3, l2 0, lr 1e-3) for 1 epoch with a
+   ``features="nature_cnn"`` policy on 10,000 uint8 frames [96, 96, 3]
+   (CarRacing-v3's, 276 MB) made on the card from a seed, labelled
+   Discrete(5) by the brightest of five vertical bands: host reads per
+   epoch (asserted one), the loss falls and prob_true_act rises, 50
+   profiled steps, the policy on the card against the CPU, the same net
+   with ``compute_dtype=torch.bfloat16`` on 4,096 frames against float32
+   (error over the largest float32 output, beside bf16's 2^-8; at most 16
+   units), and a save/load round trip.
+
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
 next-state frequencies within 5 binomial standard deviations of T, one
@@ -159,7 +194,9 @@ the SAC and SQIL phases.
 
 Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
 airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
-pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum) is driven with the kernels' launch counts set to 0 just
+pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
+gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
+bc_nature_cnn) is driven with the kernels' launch counts set to 0 just
 before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
@@ -285,14 +322,15 @@ def check_kernels(torch, dev):
         return err
 
     # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
-    # the RLHF CLI's and density's PPO iterations
-    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16))
+    # the RLHF CLI's, density's and the pixel tutorial's PPO iterations
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8))
     kept, err_path = {}, None
-    # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl), [256, 8]
-    # (airl_cli), [64, 32] (rlhf_pendulum), [128, 8] (rlhf_active_pendulum) and
-    # [64, 16] (density_pendulum); then the HalfCheetah path's, edge shapes and a
-    # large one.
-    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16))
+    # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl,
+    # gail_pixel_cartpole), [256, 8] (airl_cli, airl_pixel_cartpole), [64, 32]
+    # (rlhf_pendulum), [128, 8] (rlhf_active_pendulum), [64, 16]
+    # (density_pendulum) and [32, 8] (rlhf_pixel_cartpole); then the
+    # HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -341,6 +379,7 @@ def check_kernels(torch, dev):
         rlhf=dict(gae_rows[(64, 32)], shape="[64, 32] f32 x5 -> x2"),
         rlhf_cli=dict(gae_rows[(128, 8)], shape="[128, 8] f32 x5 -> x2"),
         density=dict(gae_rows[(64, 16)], shape="[64, 16] f32 x5 -> x2"),
+        rlhf_pixel=dict(gae_rows[(32, 8)], shape="[32, 8] f32 x5 -> x2"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -391,7 +430,14 @@ def check_kernels(torch, dev):
     # Rows that are not whole words, and ranks above 2: the byte path.
     byte_kinds = (((2, 2), torch.uint8, 0), ((), torch.bool, 0), ((3,), torch.float16, 0),
                   ((2, 2), f32, 0))
+    # Pixel CartPole's GAIL disc step: obs/next_obs [., 16, 16, 1] f32 (1,024-byte rows).
+    pixel_kinds = (((16, 16, 1), f32, 0), ((), i32, 0), ((16, 16, 1), f32, 0), ((), f32, 0))
+    # CarRacing-v3's uint8 frames [., 96, 96, 3] (27,648-byte rows), 2,048 demo
+    # and replay rows, B = 1024: not on a main path.
+    car_kinds = (((96, 96, 3), torch.uint8, 0), ((), i32, 0), ((96, 96, 3), torch.uint8, 0), ((), f32, 0))
     gail = check_fused("GAIL disc step", N, C, Bd, gail_kinds)
+    pixel = check_fused("pixel GAIL disc step", N, C, Bd, pixel_kinds)
+    car = check_fused("CarRacing-size uint8 rows (not on a main path)", 2048, 2048, 1024, car_kinds)
     airl = check_fused("AIRL disc step", N, C, Bd, airl_kinds)
     # The AIRL round at the CLI's defaults: 10 expert episodes of 200 rows, a
     # replay ring of 8 envs x 256 steps, demo batch 1024.
@@ -419,6 +465,10 @@ def check_kernels(torch, dev):
     byte_row = time_b2(torch, "kernels", "byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])",
                        *byte, Bd)
     airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
+    pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
+    car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
+                      *car, 1024)
+    del pixel, car
     dev_obs = device_ms(lambda: disc_assembly.assemble_rows(gail[0][0][0], gail[0][0][1], gail[1], gail[2]),
                         50, "assemble_fields_kernel")
     log("kernels", f"assemble_fields GAIL obs field alone: device {dev_obs} ms")
@@ -434,6 +484,11 @@ def check_kernels(torch, dev):
         airl_disc_step=dict(airl_row, shape="obs/next_obs [., 3] f32, acts [., 1] f32, dones [.] f32"),
         byte_path=dict(byte_row, shape="uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]"),
         airl_cli=dict(airl_cli_row, shape="demo [2000], replay [2048], B=1024, the AIRL fields"),
+        pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
+                                              f"[., 16, 16, 1] f32, acts [.] int32, dones [.] f32"),
+        carracing_rows=dict(car_row, main_path=False,
+                            shape="demo [2048], replay [2048], B=1024; obs/next_obs [., 96, 96, 3] uint8, "
+                                  "acts [.] int32, dones [.] f32"),
     ))
     return entries
 
@@ -679,7 +734,8 @@ def reward_cpu_check(torch, phase, trainer, fn_name="reward_train_fn"):
         got = fn(trainer.reward_net, *batch)
         want = fn(cpu_net, *(x.cpu() for x in batch))
     err = (got.cpu() - want).abs().max().item()
-    log("reference", f"{phase} {fn_name} GPU vs CPU forward on 4096 replay rows: max abs diff {err:.3g}")
+    log("reference", f"{phase} {fn_name} GPU vs CPU forward on {batch[0].shape[0]} replay rows: "
+                     f"max abs diff {err:.3g}")
     if err > 1e-4:
         raise AssertionError(f"{phase}: GPU reward forward disagrees with the CPU one")
     return got
@@ -1100,8 +1156,9 @@ def profile_round(torch, phase, trainer, s_per_round):
     kernels that ran inside each range's device span. Busy share is kernel
     time over an unprofiled round (``s_per_round``), since the profiler slows
     the host loop down."""
-    phases = ("ppo.collect", "ppo.process_chunk", f"{phase}.buffer_store", f"{phase}.disc_step",
-              f"{phase}.metrics_to_host")
+    algo = trainer._range  # "gail", "airl": the trainer's own range prefix
+    phases = ("ppo.collect", "ppo.process_chunk", f"{algo}.buffer_store", f"{algo}.disc_step",
+              f"{algo}.metrics_to_host")
     host, dev, per_name, wall = profile_ranges(
         torch, lambda: trainer.train(trainer.gen_train_timesteps), phases)
     log("profile", f"one {phase} round by phase (host ms / kernel ms): " + ", ".join(
@@ -1452,26 +1509,33 @@ def reward_update_check(torch, phase, loop):
         raise AssertionError(f"{phase}: the reward update on the card disagrees with the CPU's")
 
 
-def check_reward_fit(torch, phase, loop):
+def pendulum_reward(obs, acts):
+    """Pendulum-v1's reward of host observations ``[..., 3]`` and actions ``[..., 1]``."""
+    import numpy as np
+
+    th = np.arctan2(obs[..., 1], obs[..., 0])
+    return -(th ** 2 + 0.1 * obs[..., 2] ** 2 + 0.001 * np.clip(acts[..., 0], -2.0, 2.0) ** 2)
+
+
+def check_reward_fit(torch, phase, loop, true_reward=pendulum_reward, refit=True):
     """The learned reward on the loop's own comparisons: its accuracy and
     loss, and the share of pairs whose predicted probability is clamped to
     [1e-7, 1 - 1e-7], where the loss has no gradient (the JAX package's
     BCE clamps there too, so a pair the reward got confidently wrong stays
     wrong; CPU runs of these configurations over seeds 0-3 ended at
-    0.50-0.98). So a reward net of the same kind, re-initialised, is also
-    fitted afresh by a trainer of the same kind for 200 epochs on the
-    loop's comparisons, and that fit must reach an accuracy of at least 0.5
-    on them (0.64-1.0 on the CPU over seeds 0-3). Also each fragment's
-    rewards must be Pendulum's reward of its own observations and actions."""
+    0.50-0.98). So, with ``refit``, a reward net of the same kind,
+    re-initialised, is also fitted afresh by a trainer of the same kind for
+    200 epochs on the loop's comparisons, and that fit must reach an
+    accuracy of at least 0.5 on them (0.64-1.0 on the CPU over seeds 0-3).
+    Also each fragment's rewards must be ``true_reward`` of its own
+    observations and actions (the env's reward)."""
     import numpy as np
 
     from imitation_tpu_torch.algorithms import preference_comparisons as pc
 
     batch = loop.dataset.as_batch(loop.device)
     obs, acts, rews = (x.cpu().numpy() for x in (batch.obs[:, :, :-1], batch.acts, batch.rews_gt))
-    th = np.arctan2(obs[..., 1], obs[..., 0])
-    want = -(th ** 2 + 0.1 * obs[..., 2] ** 2 + 0.001 * np.clip(acts[..., 0], -2.0, 2.0) ** 2)
-    data_err = float(np.abs(want - rews).max())
+    data_err = float(np.abs(true_reward(obs, acts) - rews).max())
     pm = loop.reward_trainer.preference_model
 
     def fit(model):
@@ -1482,6 +1546,14 @@ def check_reward_fit(torch, phase, loop):
         return float(out.metrics["accuracy"]), float(out.loss), clamped, float(out.metrics["gt_reward_loss"])
 
     accuracy, loss, clamped, gt_loss = fit(pm)
+    if not refit:
+        log(phase, f"the loop's reward on its own {batch.num_pairs} comparisons: accuracy {accuracy:.4g}, "
+                   f"loss {loss:.4g} ({100 * clamped:.1f}% of pair predictions clamped), the ground-truth "
+                   f"reward's loss {gt_loss:.4g}; fragment rewards against the env's reward of their "
+                   f"observations and actions: max abs diff {data_err:.3g}")
+        if not (data_err <= 1e-3 and math.isfinite(loss)):
+            raise AssertionError(f"{phase}: fragment rewards off the env's by {data_err}, loss {loss}")
+        return
     net = copy.deepcopy(pm.model)
     net.init(torch.Generator(device=loop.device).manual_seed(1))
     fresh = pc.PreferenceModel(net, noise_prob=pm.noise_prob, discount_factor=pm.discount_factor,
@@ -1502,7 +1574,8 @@ def check_reward_fit(torch, phase, loop):
                              f"(data error {data_err})")
 
 
-def run_rlhf(torch, phase, loop, total_timesteps, total_comparisons, cuts):
+def run_rlhf(torch, phase, loop, total_timesteps, total_comparisons, cuts, true_reward=pendulum_reward,
+             refit=True):
     """``PreferenceComparisons.train`` of ``loop`` on the card, with the
     kernels' launch counts set to 0 just before and read just after: B1
     once per PPO iteration (none with SAC), B2 never. Seconds per
@@ -1550,11 +1623,13 @@ def run_rlhf(torch, phase, loop, total_timesteps, total_comparisons, cuts):
     params = list(loop.model.parameters()) + list(agent.policy.parameters())
     if not (all(math.isfinite(x) for x in finite) and all(bool(torch.isfinite(p).all()) for p in params)):
         raise AssertionError(f"{phase}: non-finite metrics or parameters: {finite}")
-    if len(loop.dataset) != total_comparisons:
-        raise AssertionError(f"{phase}: {len(loop.dataset)} comparisons, {total_comparisons} scheduled")
+    queue = loop.dataset.fragments1.maxlen  # comparison_queue_size keeps the newest
+    if len(loop.dataset) != min(total_comparisons, queue or total_comparisons):
+        raise AssertionError(f"{phase}: {len(loop.dataset)} comparisons, {total_comparisons} scheduled "
+                             f"(queue {queue})")
     if launches != {"gae": ppo_iterations, "assemble_rows": 0} or (ppo_iterations and not launches["gae"]):
         raise AssertionError(f"{phase}: launches {launches}, expected {ppo_iterations} GAE and no B2")
-    check_reward_fit(torch, phase, loop)
+    check_reward_fit(torch, phase, loop, true_reward, refit)
     host, dev_t = split_ranges(prof, RLHF_RANGES)
     per_name = kernel_times(prof)
     n_kernels, kernel_us = sum(c for c, _ in per_name.values()), sum(us for _, us in per_name.values())
@@ -1976,6 +2051,230 @@ def run_checkpoint(torch, dev):
             raise AssertionError(f"checkpoint: {name} resumed run differs from the uninterrupted one")
 
 
+def pixel_demos(torch, phase, dev):
+    """The GAIL phase's scripted CartPole episodes (128 of 100 steps, 12,800
+    rows), each observation drawn by ``PixelCartPole``'s render on the card."""
+    import dataclasses
+
+    from imitation_tpu_torch.examples.tutorials.t05a_preference_comparisons_cnn import PixelCartPole
+
+    demos, stats = expert_demos(torch, phase, "CartPole-v1", 64, 64, dev, max_episode_steps=100)
+    if stats["return_min"] != 100.0:
+        raise AssertionError("the scripted expert should balance every 100-step episode")
+    pixel = [dataclasses.replace(t, obs=PixelCartPole.render(torch.as_tensor(t.obs, device=dev)).cpu().numpy())
+             for t in demos]
+    rows = sum(len(t) for t in pixel)
+    log(phase, f"pixel demos: {len(pixel)} episodes, {rows} rows, obs {pixel[0].obs.shape[1:]} "
+               f"{pixel[0].obs.dtype}, {sum(t.obs.nbytes for t in pixel) / 1e6:.1f} MB")
+    return pixel
+
+
+def pixel_setup(dev, num_envs, **venv_kw):
+    """A device ``PixelCartPole`` vector env and the tutorial's (64, 64) MLP
+    policy over its flattened pixels."""
+    from imitation_tpu_torch.envs.vector import VectorEnv
+    from imitation_tpu_torch.examples.tutorials.t05a_preference_comparisons_cnn import PixelCartPole
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+
+    venv = VectorEnv(PixelCartPole(), num_envs=num_envs, device=dev, **venv_kw)
+    return venv, ActorCriticPolicy(venv.observation_space, venv.action_space, hid_sizes=(64, 64))
+
+
+def run_gail_pixel(torch, dev, demos, num_envs=1024, n_steps=128, demo_batch_size=2048):
+    """GAIL on device ``PixelCartPole`` at the GAIL headline's widths
+    (bench.py:248-268) with a ``CnnRewardNet`` discriminator at its
+    defaults: a warm-up round, two rounds of ``train``, the reward on the
+    card against a CPU copy, one profiled round."""
+    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+    from imitation_tpu_torch.rewards.reward_nets import CnnRewardNet
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    phase = "gail_pixel_cartpole"
+    venv, policy = pixel_setup(dev, num_envs)
+    trainer = GAIL(
+        demonstrations=demos, demo_batch_size=demo_batch_size, venv=venv,
+        reward_net=CnnRewardNet(venv.observation_space, venv.action_space), policy=policy,
+        gen_config=PPOConfig(n_steps=n_steps, n_minibatches=32, n_epochs=5), n_disc_updates_per_round=2,
+        allow_variable_horizon=True, custom_logger=make_logger(), seed=0,
+    )
+    t0 = time.perf_counter()
+    trainer.train(trainer.gen_train_timesteps)
+    torch.cuda.synchronize()
+    ring = trainer._gen_buffer_state.data
+    log(phase, f"warm-up round {time.perf_counter() - t0:.3f} s; replay ring obs {tuple(ring.obs.shape)} "
+               f"{str(ring.obs.dtype)} ({ring.obs.numel() * ring.obs.element_size() / 1e6:.1f} MB)")
+    launches, s_per_round = train_rounds(torch, phase, trainer, 2)
+    reward_cpu_check(torch, phase, trainer)
+    profile_round(torch, phase, trainer, s_per_round)
+    return launches, s_per_round
+
+
+def run_airl_pixel(torch, dev, demos):
+    """One AIRL round on device ``PixelCartPole`` at the JAX CLI's AIRL
+    defaults (8 envs x 256 steps, demo batch 1024, 4 disc updates) with
+    ``ShapedRewardNet(CnnRewardNet, BasicPotentialCNN)``; the test reward
+    (the unshaped base) against the train reward."""
+    from imitation_tpu_torch.algorithms.adversarial.airl import AIRL
+    from imitation_tpu_torch.rewards.reward_nets import BasicPotentialCNN, CnnRewardNet, ShapedRewardNet
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    phase = "airl_pixel_cartpole"
+    venv, policy = pixel_setup(dev, 8)
+    o, a = venv.observation_space, venv.action_space
+    trainer = AIRL(
+        demonstrations=demos, demo_batch_size=1024, venv=venv,
+        reward_net=ShapedRewardNet(CnnRewardNet(o, a), BasicPotentialCNN(o)), policy=policy,
+        gen_config=PPOConfig(n_steps=256, n_minibatches=32, n_epochs=5), n_disc_updates_per_round=4,
+        allow_variable_horizon=True, custom_logger=make_logger(), seed=0,
+    )
+    launches, s_round = train_rounds(torch, phase, trainer, 1)
+    train = reward_cpu_check(torch, phase, trainer)
+    test = reward_cpu_check(torch, phase, trainer, "reward_test_fn")
+    diff = (train - test).abs().max().item()
+    log(phase, f"reward_test_fn (CnnRewardNet alone) vs reward_train_fn (shaped by BasicPotentialCNN) on "
+               f"{train.shape[0]} replay rows: max abs diff {diff:.4g}, test mean {test.mean().item():.4g}, "
+               f"train mean {train.mean().item():.4g}")
+    if not diff > 0:
+        raise AssertionError(f"{phase}: the test reward should strip the potential shaping")
+    return launches, s_round
+
+
+def pixel_ensemble_check(torch, phase, loop):
+    """A 3-member ``RewardEnsemble`` of the tutorial's ``CnnRewardNet``s on
+    the loop's fragments: the members' fragment rewards on the card against
+    a CPU copy, then one ensemble-trainer update against the CPU's
+    (``reward_update_check``)."""
+    import types
+
+    from imitation_tpu_torch import make_generator
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+    from imitation_tpu_torch.rewards.reward_nets import CnnRewardNet, RewardEnsemble
+
+    o, a = loop.model.observation_space, loop.model.action_space
+    ens = RewardEnsemble(o, a, member_cls=CnnRewardNet, num_members=3,
+                         member_kwargs=dict(hid_channels=(8, 8), use_done=False)).to(loop.device)
+    ens.init(make_generator(1, loop.device))
+    pm = pc.PreferenceModel(ens)
+    trainer = pc._make_reward_trainer(pm, rng=0, reward_trainer_kwargs=dict(batch_size=32))
+    trainer.logger = make_logger()
+    batch = loop.dataset.as_batch(loop.device)
+    cpu = pc.PreferenceModel(copy.deepcopy(ens).cpu())
+    with torch.no_grad():
+        got, want = pm.fragment_rewards(batch), cpu.fragment_rewards(batch.map(lambda x: x.cpu()))
+    err = (got.cpu() - want).abs().max().item()
+    log("reference", f"{phase} 3-member CnnRewardNet ensemble: fragment rewards {tuple(got.shape)} on the "
+                     f"card vs CPU max abs diff {err:.3g}")
+    if err > 1e-4:
+        raise AssertionError(f"{phase}: the ensemble's forward on the card disagrees with the CPU's")
+    reward_update_check(torch, f"{phase} ensemble", types.SimpleNamespace(
+        reward_trainer=trainer, dataset=loop.dataset, device=loop.device))
+
+
+def run_rlhf_pixel(torch, dev):
+    """The ported tutorial's loop (``build``) at its own ``__main__`` budget,
+    through ``run_rlhf``: CartPole's reward is 1 a step, so every fragment
+    of 20 steps returns 20 and the synthetic preferences are coin flips; the
+    reward's fit is printed, not asserted (no refit). Then the CNN
+    ensemble's check."""
+    import numpy as np
+
+    from imitation_tpu_torch.examples.tutorials import t05a_preference_comparisons_cnn as tutorial
+
+    phase = "rlhf_pixel_cartpole"
+    loop = tutorial.build(dev, make_logger())
+    launches, per_iter = run_rlhf(
+        torch, phase, loop, 30_000, 300, ("none: the tutorial's own __main__ budget (30,000 timesteps, "
+                                          "300 comparisons)",),
+        true_reward=lambda obs, acts: np.ones(acts.shape, np.float32), refit=False)
+    pixel_ensemble_check(torch, phase, loop)
+    return launches, per_iter
+
+
+def run_bc_nature_cnn(torch, dev, n=10_000, bf16_rows=4096):
+    """``BC.train`` at the ``train_imitation bc`` defaults (batch 32, ent
+    1e-3, l2 0, lr 1e-3) for 1 epoch with a ``features="nature_cnn"`` policy
+    on ``n`` uint8 frames [96, 96, 3] (CarRacing-v3's) made on the card from
+    a seed, labelled Discrete(5) by the brightest of five vertical bands;
+    50 steps profiled; the loss falls; the policy's forward on the card
+    against the CPU; the same net in bfloat16 against float32; a save/load
+    round trip."""
+    import tempfile
+
+    import numpy as np
+
+    from imitation_tpu_torch import make_generator
+    from imitation_tpu_torch.algorithms.bc import BC
+    from imitation_tpu_torch.data.types import TransitionBatch
+    from imitation_tpu_torch.envs.base import Space
+    from imitation_tpu_torch.models.policies import ActorCriticNet, ActorCriticPolicy
+    from imitation_tpu_torch.policies import serialize
+
+    phase = "bc_nature_cnn"
+    g = make_generator(0, dev)
+    t0 = time.perf_counter()
+    frames = torch.randint(0, 200, (n, 96, 96, 3), generator=g, device=dev, dtype=torch.uint8)
+    band = torch.randint(0, 5, (n,), generator=g, device=dev, dtype=torch.int32)
+    column_band = torch.arange(96, device=dev) * 5 // 96
+    frames += (column_band[None, None, :, None] == band[:, None, None, None]).to(torch.uint8) * 55
+    zeros = torch.zeros(n, device=dev)
+    demos = TransitionBatch(obs=frames, acts=band, next_obs=frames, dones=zeros, rews=zeros)
+    torch.cuda.synchronize()
+    log(phase, f"{n} uint8 frames {tuple(frames.shape[1:])} made on the card in {time.perf_counter() - t0:.3f} s "
+               f"({frames.numel() / 1e6:.1f} MB); labels by band: {torch.bincount(band).tolist()}")
+    obs_space, act_space = Space.box(0, 255, (96, 96, 3), np.uint8), Space.discrete(5)
+    bc = BC(observation_space=obs_space, action_space=act_space, demonstrations=demos,
+            policy=ActorCriticPolicy(obs_space, act_space, features="nature_cnn"), rng=0, batch_size=32,
+            ent_weight=1e-3, l2_weight=0.0, optimizer_kwargs=dict(learning_rate=1e-3),
+            custom_logger=make_logger(), device=dev)
+    if bc._demo_store.batch.obs.dtype != torch.uint8:
+        raise AssertionError(f"{phase}: the demo store should keep the frames uint8")
+    before = demo_metrics(torch, bc)
+    timed_epochs(torch, phase, bc, n_epochs=1)
+    after = demo_metrics(torch, bc)
+    check_learned(phase, before, after)
+    if not after["loss"] < before["loss"]:
+        raise AssertionError(f"{phase}: the loss on the demos did not fall")
+    profile_bc(torch, phase, bc)
+
+    policy = bc.policy
+    x = frames[:256]
+    cpu = copy.deepcopy(policy).cpu()
+    with torch.no_grad():
+        (d, v), (dc, vc) = policy.dist_and_value(x), cpu.dist_and_value(x.cpu())
+    err = max((d.logits.cpu() - dc.logits).abs().max().item(), (v.cpu() - vc).abs().max().item())
+    log("reference", f"{phase} NatureCNN policy on 256 frames, card vs CPU: max abs diff {err:.3g}")
+    if err > 1e-4:
+        raise AssertionError(f"{phase}: the policy's forward on the card disagrees with the CPU's")
+
+    bf16 = ActorCriticNet(obs_space.flat_dim, act_space, features="nature_cnn", obs_shape=obs_space.shape,
+                          compute_dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(policy.net.state_dict())
+    x = frames[:bf16_rows]
+    with torch.no_grad():
+        (d32, v32), (d16, v16) = policy.net(x), bf16(x)
+        torch.cuda.synchronize()
+        ms32 = cuda_ms(lambda: policy.net(x), reps=5)
+        ms16 = cuda_ms(lambda: bf16(x), reps=5)
+    unit = 2.0 ** -8
+    rel = {name: (b.float() - a).abs().max().item() / a.abs().max().item()
+           for name, a, b in (("logits", d32.logits, d16.logits), ("values", v32, v16))}
+    log(phase, f"bfloat16 compute on {bf16_rows} frames against float32: max abs error / max |float32| "
+               f"logits {rel['logits']:.4g}, values {rel['values']:.4g} (bf16's unit roundoff 2^-8 = "
+               f"{unit:.4g}; limit 16 units); forward {ms16:.3f} ms in bf16, {ms32:.3f} ms in float32")
+    if not max(rel.values()) <= 16 * unit:
+        raise AssertionError(f"{phase}: bfloat16 compute is off float32 by {rel}")
+
+    with tempfile.TemporaryDirectory(prefix="nature_cnn_") as path:
+        serialize.save_policy(path, policy)
+        loaded = serialize.load_policy_from_path(path, device=dev)
+        with torch.no_grad():
+            same = torch.equal(loaded.dist_and_value(frames[:64])[0].logits,
+                               policy.dist_and_value(frames[:64])[0].logits)
+    log(phase, f"save_policy + load_policy_from_path: features {loaded.features}, logits equal: {same}")
+    if not same or loaded.features != "nature_cnn":
+        raise AssertionError(f"{phase}: the reloaded policy differs from the saved one")
+
+
 def main() -> int:
     import torch
 
@@ -2105,6 +2404,23 @@ def main() -> int:
     t0 = time.perf_counter()
     run_checkpoint(torch, dev)
     log("checkpoint", f"done in {time.perf_counter() - t0:.2f} s")
+
+    # Image observations: GAIL and AIRL on pixel CartPole (B1 once per round,
+    # B2 once per disc step, 1 KB f32 rows), the pixel tutorial's RLHF (B1
+    # once per PPO iteration at [32, 8]) and NatureCNN BC (neither kernel).
+    t_image = time.perf_counter()
+    demos = pixel_demos(torch, "gail_pixel_cartpole", dev)
+    for phase, fn in (("gail_pixel_cartpole", lambda: run_gail_pixel(torch, dev, demos)),
+                      ("airl_pixel_cartpole", lambda: run_airl_pixel(torch, dev, demos)),
+                      ("rlhf_pixel_cartpole", lambda: run_rlhf_pixel(torch, dev))):
+        t0 = time.perf_counter()
+        paths[phase], _ = fn()
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    zero_counts()
+    run_bc_nature_cnn(torch, dev)
+    log("bc_nature_cnn", f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+    log("image", f"the image phases took {time.perf_counter() - t_image:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

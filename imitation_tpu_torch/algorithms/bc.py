@@ -200,7 +200,7 @@ class BC(base.DemonstrationAlgorithm):
         if self._policy.normalize_features:
             # Fold the whole demo set into the feature normalizer once per
             # call, so a tanh torso does not saturate on wide-range obs.
-            self._policy.net.feat_norm.update(self._demo_store.batch.obs)
+            self._policy.net.update_feature_stats(self._demo_store.batch.obs)
         if self._demo_store.num_samples // self.batch_size == 0:
             raise ValueError("Not enough demonstrations for one batch.")
         batches_left, epochs_left = n_batches, n_epochs

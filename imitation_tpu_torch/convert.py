@@ -3,11 +3,20 @@
 The flax variables are given as nested dicts of numpy arrays
 (``{"params": {...}, "stats": {...}}``, e.g. ``jax.device_get`` of what
 ``init`` returns, or a msgpack restore). Layer names are kept, so a flax path
-``params/pi0/kernel`` becomes the torch key ``net.pi0.weight``. A flax
-``Dense.kernel`` is ``[in, out]`` and a torch ``Linear.weight`` is
-``[out, in]``, so kernels are transposed. A member-stacked kernel of an
-ensemble (``nn.vmap``, ``[M, in, out]``) is the port's ``StackedMLP`` layout
-already and is kept as it is. ``RunningNorm`` and ``EMANorm`` statistics
+``params/pi0/kernel`` becomes the torch key ``net.pi0.weight``. Kernels are
+re-laid by rank:
+
+* a flax ``Dense.kernel`` ``[in, out]`` is transposed to a torch
+  ``Linear.weight`` ``[out, in]``;
+* a member-stacked dense kernel of an ensemble (``nn.vmap``,
+  ``[M, in, out]``) is the port's member-stacked layout already (``StackedMLP``
+  and the dense layers of ``reward_nets.VmapMembers``) and is kept as it is;
+* a flax ``Conv.kernel`` HWIO ``[k, k, in, out]`` becomes a torch
+  ``Conv2d.weight`` OIHW ``[out, in, k, k]``, and a member-stacked one
+  ``[M, k, k, in, out]`` becomes ``[M, out, in, k, k]``.
+
+The port's NatureCNN flattens in flax's (h, w, c) order, so ``cnn_fc``'s
+kernel needs no permutation of its rows. ``RunningNorm`` and ``EMANorm`` statistics
 (``stats/<layer>/{running_mean, running_var, count, ...}``, with a leading
 member axis in an ensemble) become the module's buffers of the same names.
 """
@@ -18,6 +27,14 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+
+# flax kernel rank -> the port's layout (rank 3, member-stacked dense, is kept).
+_KERNEL_LAYOUT = {
+    2: lambda a: a.T,  # [in, out] -> [out, in]
+    4: lambda a: a.transpose(3, 2, 0, 1),  # HWIO -> OIHW
+    5: lambda a: a.transpose(0, 4, 3, 1, 2),  # [M, k, k, in, out] -> [M, out, in, k, k]
+}
 
 
 def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -31,7 +48,7 @@ def flax_to_state_dict(variables: Mapping[str, Any], prefix: str = "") -> Dict[s
                 continue
             arr = np.asarray(value)
             if name == "kernel":
-                name, arr = "weight", (arr.T if arr.ndim == 2 else arr)
+                name, arr = "weight", _KERNEL_LAYOUT.get(arr.ndim, lambda a: a)(arr)
             out[prefix + ".".join(path + [name])] = torch.from_numpy(np.array(arr, copy=True))
 
     for collection in ("params", "stats"):
@@ -47,9 +64,10 @@ def policy_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def reward_net_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Reward-net variables -> ``imitation_tpu_torch`` reward-net state_dict.
 
-    ``BasicRewardNet`` keys are ``mlp.*`` and ``input_norm.*``; a shaped net
-    (``BasicShapedRewardNet``) nests them as ``base.*`` and its potential as
-    ``potential.mlp.*``; a ``NormalizedRewardNet`` as ``base.*`` beside its
+    ``BasicRewardNet`` keys are ``mlp.*`` and ``input_norm.*``, a
+    ``CnnRewardNet``'s ``cnn.*``; a shaped net nests its reward as ``base.*``
+    and its potential as ``potential.mlp.*`` (``potential.cnn.*`` for
+    ``BasicPotentialCNN``); a ``NormalizedRewardNet`` as ``base.*`` beside its
     output statistics ``normalizer.*``; a ``RewardEnsemble`` as
     ``members.*`` (``members.base.*`` and ``members.normalizer.*`` with
     normalized members), every tensor with the member axis first: the flax

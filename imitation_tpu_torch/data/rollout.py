@@ -330,3 +330,15 @@ def discounted_sum(arr: np.ndarray, gamma: float) -> Union[np.ndarray, float]:
     if arr.ndim == 1:
         return float(discounts @ arr)
     return np.tensordot(discounts, arr, axes=(0, 0))
+
+
+def discounted_sum_torch(arr: torch.Tensor, gamma: float, axis: int = 0) -> torch.Tensor:
+    """Discounted sum of ``arr`` along ``axis`` on its own device (the JAX
+    package's ``discounted_sum_jax``): the discounts ``gamma ** t`` are
+    powers in ``arr``'s dtype."""
+    n = arr.shape[axis]
+    discounts = torch.pow(torch.tensor(gamma, dtype=arr.dtype, device=arr.device),
+                          torch.arange(n, dtype=arr.dtype, device=arr.device))
+    shape = [1] * arr.dim()
+    shape[axis] = n
+    return (arr * discounts.reshape(shape)).sum(dim=axis)

@@ -56,6 +56,20 @@ class Space:
         )
         return low + torch.rand(shape, generator=generator, device=dev) * (high - low)
 
+    def contains(self, x) -> bool:
+        """Whether host array ``x`` (one value or a batch) lies in the space:
+        in ``[0, n)`` for a discrete space; for a box, trailing dims equal
+        to the shape and values within the bounds, 1e-6 slack."""
+        x = np.asarray(x)
+        if self.is_discrete:
+            return bool((x >= 0).all() and (x < self.n).all())
+        ok = x.shape[-len(self.shape):] == tuple(self.shape) if self.shape else True
+        if self.low is not None:
+            ok = ok and bool((x >= self.low - 1e-6).all())
+        if self.high is not None:
+            ok = ok and bool((x <= self.high + 1e-6).all())
+        return ok
+
     @classmethod
     def discrete(cls, n: int) -> "Space":
         return cls(shape=(), dtype=np.int32, n=n)
@@ -106,6 +120,10 @@ class Env(abc.ABC):
     @abc.abstractmethod
     def reset(self, n: int, generator: torch.Generator) -> Tuple[torch.Tensor, Any]:
         """Returns (obs, state) for ``n`` fresh episodes on the generator's device."""
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
 
     @abc.abstractmethod
     def step(self, state: Any, action: torch.Tensor,

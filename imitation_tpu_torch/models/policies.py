@@ -12,6 +12,14 @@ observations:
   rollout closures ``(obs, generator) -> (acts, {"log_prob", "value"})``;
 * ``predict(obs, deterministic, seed)``: numpy in, numpy out, SB3 style.
 
+``features="nature_cnn"`` puts SB3's NatureCNN in front of the torsos for
+image observations ``[B, H, W, C]`` (or ``[B, H, W]``): the input divided
+by 255, three VALID convs (32 8x8/4, 64 4x4/2, 64 3x3/1) with ReLU, a
+flatten in flax's NHWC order (h, w, c), and ``cnn_fc`` (512, ReLU).
+``ActorCriticNet``'s ``compute_dtype`` runs the layers in that dtype
+(parameters and feature statistics stay float32; logits and values come
+back float32).
+
 ``FeedForward32Policy`` is the (32, 32) actor-critic; ``RandomPolicy`` and
 ``ZeroPolicy`` are the non-trainable baselines, with the same rollout
 closures.
@@ -32,12 +40,30 @@ from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.models.distributions import Categorical, DiagGaussian
 
 
+# NatureCNN's convs: (name, out channels, kernel, stride), all VALID.
+NATURE_CNN = (("conv32_8", 32, 8, 4), ("conv64_4", 64, 4, 2), ("conv64_3", 64, 3, 1))
+FEATURES = ("flatten", "nature_cnn")
+
+
+def nature_cnn_flat_dim(obs_shape: Sequence[int]) -> int:
+    """The flatten size of NatureCNN's last conv over ``[H, W(, C)]``
+    frames: 96 -> 23 -> 10 -> 8 gives 8 * 8 * 64 = 4,096."""
+    h, w = obs_shape[:2]
+    for _, _, k, s in NATURE_CNN:
+        h, w = (h - k) // s + 1, (w - k) // s + 1
+    if h < 1 or w < 1:
+        raise ValueError(f"NatureCNN needs frames of at least 36 pixels, not {tuple(obs_shape)}")
+    return h * w * NATURE_CNN[-1][1]
+
+
 class ActorCriticNet(nn.Module):
     """Shared-input actor-critic with separate pi/vf MLP torsos.
 
     SB3's ``ActorCriticPolicy(net_arch=[32, 32])`` (the reference's
-    ``FeedForward32Policy``). Continuous actions use a state-independent
-    learned ``log_std``. Layer names follow the flax module: ``pi{i}``,
+    ``FeedForward32Policy``), or with ``features="nature_cnn"`` its
+    ``CnnPolicy`` over ``obs_shape`` frames. Continuous actions use a
+    state-independent learned ``log_std``. Layer names follow the flax
+    module: ``conv32_8``, ``conv64_4``, ``conv64_3``, ``cnn_fc``, ``pi{i}``,
     ``vf{i}``, ``pi_out``, ``vf_out``, ``feat_norm``.
     """
 
@@ -49,12 +75,26 @@ class ActorCriticNet(nn.Module):
         activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
         normalize_features: bool = False,
         log_std_init: float = 0.0,
+        features: str = "flatten",
+        obs_shape: Optional[Sequence[int]] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if features not in FEATURES:
+            raise ValueError(f"features {features!r} not in {FEATURES}")
         self.action_space = action_space
         self.hid_sizes = tuple(hid_sizes)
         self.activation = activation
         self.log_std_init = log_std_init
+        self.features = features
+        self.compute_dtype = compute_dtype
+        if features == "nature_cnn":
+            channels = obs_shape[2] if len(obs_shape) == 3 else 1
+            for name, out, k, s in NATURE_CNN:
+                self.add_module(name, networks.conv2d(channels, out, k, s))
+                channels = out
+            self.cnn_fc = networks.dense(nature_cnn_flat_dim(obs_shape), 512)
+            obs_dim = 512
         self.feat_norm = networks.RunningNorm(obs_dim) if normalize_features else None
         size = obs_dim
         for i, h in enumerate(self.hid_sizes):
@@ -72,6 +112,10 @@ class ActorCriticNet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draws every weight from ``generator`` (flax ``init``)."""
+        if self.features == "nature_cnn":
+            for name, _, _, _ in NATURE_CNN:
+                networks.init_conv_(getattr(self, name), generator)
+            networks.init_dense_(self.cnn_fc, generator)
         for i in range(len(self.hid_sizes)):
             networks.init_dense_(getattr(self, f"pi{i}"), generator)
             networks.init_dense_(getattr(self, f"vf{i}"), generator)
@@ -83,25 +127,46 @@ class ActorCriticNet(nn.Module):
         if self.feat_norm is not None:
             self.feat_norm.reset_stats()
 
+    def _extract(self, obs: torch.Tensor) -> torch.Tensor:
+        """The features before ``feat_norm``, in the compute dtype."""
+        if self.features == "flatten":
+            return obs.reshape(obs.shape[0], -1).to(self.compute_dtype)
+        x = obs.to(self.compute_dtype)
+        if x.dim() == 3:
+            x = x[..., None]
+        x = (x / 255.0).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for name, _, _, _ in NATURE_CNN:
+            x = torch.relu(networks.conv_nchw(getattr(self, name), x))
+        # Back to NHWC before the flatten, so cnn_fc's rows are in flax's
+        # (h, w, c) order and its weights carry across unpermuted.
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return torch.relu(networks.linear(self.cnn_fc, x))
+
     def _features(self, obs: torch.Tensor, update_stats: bool) -> torch.Tensor:
-        x = obs.reshape(obs.shape[0], -1).float()
+        x = self._extract(obs)
         if self.feat_norm is not None:
             x = self.feat_norm(x, update_stats=update_stats)
         return x
 
+    @torch.no_grad()
+    def update_feature_stats(self, obs: torch.Tensor) -> None:
+        """Folds ``obs``'s features into ``feat_norm``'s statistics."""
+        self.feat_norm.update(self._extract(obs))
+
     def _dist(self, x: torch.Tensor):
         for i in range(len(self.hid_sizes)):
-            x = self.activation(getattr(self, f"pi{i}")(x))
+            x = self.activation(networks.linear(getattr(self, f"pi{i}"), x))
+        out = networks.linear(self.pi_out, x).float()
         if self.action_space.is_discrete:
-            return Categorical(logits=self.pi_out(x))
-        return DiagGaussian(mean=self.pi_out(x), log_std=self.log_std)
+            return Categorical(logits=out)
+        return DiagGaussian(mean=out, log_std=self.log_std)
 
     def forward(self, obs: torch.Tensor, update_stats: bool = False):
         x = self._features(obs, update_stats)
         vf_x = x
         for i in range(len(self.hid_sizes)):
-            vf_x = self.activation(getattr(self, f"vf{i}")(vf_x))
-        return self._dist(x), self.vf_out(vf_x).squeeze(-1)
+            vf_x = self.activation(networks.linear(getattr(self, f"vf{i}"), vf_x))
+        return self._dist(x), networks.linear(self.vf_out, vf_x).float().squeeze(-1)
 
     def distribution(self, obs: torch.Tensor):
         """The action distribution alone (the value torso is not run)."""
@@ -119,19 +184,22 @@ class ActorCriticPolicy(nn.Module):
         activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
         normalize_features: bool = False,
         log_std_init: float = 0.0,
+        features: str = "flatten",
     ):
         super().__init__()
         self.observation_space = observation_space
         self.action_space = action_space
         self.normalize_features = normalize_features
-        obs_dim = observation_space.flat_dim
+        self.features = features
         self.net = ActorCriticNet(
-            obs_dim,
+            observation_space.flat_dim,
             action_space,
             hid_sizes=hid_sizes,
             activation=activation,
             normalize_features=normalize_features,
             log_std_init=log_std_init,
+            features=features,
+            obs_shape=tuple(observation_space.shape),
         )
 
     def init(self, generator: Optional[torch.Generator] = None) -> "ActorCriticPolicy":

@@ -1,9 +1,10 @@
 """Policy save/load and the policy-type registry.
 
 Port of ``imitation_tpu/policies/serialize.py`` for actor-critic policies
-and SAC actors (``rl.sac.SACPolicy``, policy type ``sac_actor``). A saved
-policy is a directory holding ``policy_config.json``, with the same schema
-and values the JAX package writes (architecture and spaces), and
+(``features`` ``flatten`` or ``nature_cnn``) and SAC actors
+(``rl.sac.SACPolicy``, policy type ``sac_actor``). A saved policy is a
+directory holding ``policy_config.json``, with the same schema and values
+the JAX package writes (architecture, features and spaces), and
 ``policy.pt``, a ``torch.save`` of the module's ``state_dict`` with tensors
 on the CPU. Reading the JAX package's ``variables.msgpack`` is not ported.
 ``load_policy`` looks loaders up by type: ``random``, ``zero`` and ``saved``.
@@ -79,7 +80,7 @@ def policy_config(policy: SavedPolicy) -> Dict[str, Any]:
         "normalize_features": policy.normalize_features,
         "log_std_init": net.log_std_init,
         "activation": act_name,
-        "features": "flatten",
+        "features": policy.features,
     }
 
 
@@ -93,8 +94,6 @@ def policy_from_config(config: Dict[str, Any]) -> SavedPolicy:
         )
     if config["policy_type"] != "actor_critic":
         raise ValueError(f"policy_type {config['policy_type']!r} is not loaded by the port")
-    if config.get("features", "flatten") != "flatten":
-        raise ValueError(f"features {config['features']!r} are not ported")
     return ActorCriticPolicy(
         observation_space=_space_from_json(config["observation_space"]),
         action_space=_space_from_json(config["action_space"]),
@@ -102,6 +101,7 @@ def policy_from_config(config: Dict[str, Any]) -> SavedPolicy:
         activation=ACTIVATIONS[config.get("activation", "tanh")],
         normalize_features=config["normalize_features"],
         log_std_init=config["log_std_init"],
+        features=config.get("features", "flatten"),
     )
 
 

@@ -42,6 +42,7 @@ REWARD_WEIGHTS = "reward_net.pt"
 _NET_CLASSES: Dict[str, Callable[..., reward_nets.RewardNet]] = {
     "BasicRewardNet": reward_nets.BasicRewardNet,
     "BasicShapedRewardNet": reward_nets.BasicShapedRewardNet,
+    "CnnRewardNet": reward_nets.CnnRewardNet,
     "RewardEnsemble": reward_nets.RewardEnsemble,
 }
 

@@ -222,7 +222,7 @@ class PPO:
             # Fold this chunk's observations into the feature normalizer
             # once per iteration (the rollout used the previous stats).
             if policy.normalize_features:
-                policy.net.feat_norm.update(flat(chunk.obs).float())
+                policy.net.update_feature_stats(flat(chunk.obs))
 
             true_rews = chunk.rews
             dones_f = chunk.dones.float()

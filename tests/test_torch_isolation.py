@@ -9,7 +9,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "imitation_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "imitation_tpu", "gymnasium", "gym", "mujoco",
-             "datasets", "msgpack", "orbax", "chex", "tensorboardX", "wandb"}
+             "datasets", "msgpack", "orbax", "chex", "tensorboardX", "wandb",
+             "examples"}  # the JAX package's examples import JAX
 ALLOWED_THIRD_PARTY = {"torch", "numpy"}
 
 

@@ -177,8 +177,15 @@ def test_ensemble_refuses_one_member_and_other_member_nets():
     _, _, to, ta = spaces("box")
     with pytest.raises(ValueError, match="at least 2"):
         reward_nets.RewardEnsemble(to, ta, num_members=1)
-    with pytest.raises(NotImplementedError):
+    # Members of any RewardNet class are stacked (CnnRewardNet's in
+    # tests/test_torch_cnn_reward_nets.py); a factory function is refused, as
+    # the JAX package's nn.vmap refuses it.
+    with pytest.raises(TypeError, match="RewardNet class"):
         reward_nets.RewardEnsemble(to, ta, member_cls=reward_nets.BasicShapedRewardNet)
+    jo, ja, _, _ = spaces("box")
+    with pytest.raises(TypeError):
+        jax_nets.RewardEnsemble(observation_space=jo, action_space=ja,
+                                member_cls=jax_nets.BasicShapedRewardNet).init_variables(jax.random.key(0))
 
 
 @pytest.mark.parametrize("norm", [None, "running"])
