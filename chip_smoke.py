@@ -159,6 +159,29 @@ Phases, each timed and printed on its own line:
    with ``compute_dtype=torch.bfloat16`` on 4,096 frames against float32
    (error over the largest float32 output, beside bf16's 2^-8; at most 16
    units), and a save/load round trip.
+28. experts_seals: for each of the five seals envs, the JAX rounds' expert
+   demos (output/experts/<env>/rollouts, HuggingFace Arrow files) through
+   ``data.serialize.load`` (the port's own Arrow reader; episodes,
+   transitions, MB and seconds printed) and the expert policy
+   (output/experts/<env>/policy, flax msgpack: a ``sac_actor`` for
+   HalfCheetah, ``actor_critic`` for the others) through
+   ``load_policy_from_path`` onto the card; the expert's deterministic
+   actions on every demo observation against a CPU copy (within 1e-5 of
+   the largest action, or 4x the float32 floor of a one-ulp weight nudge),
+   the mean log-probability of the demo actions, and the demos' mean return
+   beside summary.json's evaluation return (not gated: the demos were
+   sampled). The experts are found beside this script; without them it
+   exits 1 before anything runs.
+29. bc_seals_half_cheetah: ``BC.train`` on the 48 HalfCheetah episodes
+   (48,000 transitions) at benchmarking/run_parity.py's settings
+   (FeedForward32 with normalize_features, batch 64, l2 5.73e-3, lr
+   8.06e-3), 2 epochs instead of 20: one host read per epoch, loss falling,
+   steps/s, 50 profiled steps, a save/load round trip. Evaluation needs
+   MuJoCo and is left out.
+30. bc_dict_obs: BC on 65,536 dict observations ``{"pos": 3, "vel": 2}``
+   made on the card, as tests/algorithms/test_bc_dictobs.py (batch 256
+   instead of 16), 2 epochs: accuracy above 0.9, the policy on the card
+   against the CPU. Neither kernel is on phases 28-30.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -2275,11 +2298,192 @@ def run_bc_nature_cnn(torch, dev, n=10_000, bf16_rows=4096):
         raise AssertionError(f"{phase}: the reloaded policy differs from the saved one")
 
 
+# The repo's seals experts (the JAX rounds' SAC and PPO experts and their
+# demos), found beside this script: output/experts/<env>/{policy,rollouts}.
+EXPERTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output", "experts")
+SEALS_ENVS = ("seals_ant", "seals_half_cheetah", "seals_hopper", "seals_swimmer", "seals_walker2d")
+
+
+def nudged_floor(torch, fn, module, x):
+    """How far float32 rounding alone moves ``fn(module, x)``: the largest
+    change when every weight of ``module`` is scaled by 1 + 2^-23, over the
+    output's largest magnitude (tests/torch_parity.py ``update_floors``)."""
+    nudged = copy.deepcopy(module)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + 2.0 ** -23)
+        out = fn(module, x)
+        return (fn(nudged, x) - out).abs().max().item() / max(out.abs().max().item(), 1e-30)
+
+
+def run_experts_seals(torch, dev):
+    """For each seals env: its demos through ``data.serialize.load`` (the
+    port's Arrow reader), its expert through ``load_policy_from_path`` (the
+    port's flax-msgpack reader), the expert's deterministic actions on every
+    demo observation on the card against a CPU copy, the mean log-probability
+    of the demo actions, and the demos' mean return beside the expert's
+    evaluation return in summary.json (reported, not gated: the demos were
+    sampled)."""
+    import numpy as np
+
+    from imitation_tpu_torch.data import serialize as data_serialize
+    from imitation_tpu_torch.policies import serialize
+    from imitation_tpu_torch.rl.sac import SACPolicy
+
+    phase = "experts_seals"
+    with open(os.path.join(EXPERTS, "summary.json")) as f:
+        summary = json.load(f)
+    for env in SEALS_ENVS:
+        rollouts = os.path.join(EXPERTS, env, "rollouts")
+        mb = sum(os.path.getsize(os.path.join(rollouts, n)) for n in os.listdir(rollouts)
+                 if n.endswith(".arrow")) / 1e6
+        t0 = time.perf_counter()
+        demos = data_serialize.load(rollouts)
+        t_read = time.perf_counter() - t0
+        trajs = list(demos)  # every episode decoded (infos through json)
+        t_decode = time.perf_counter() - t0 - t_read
+        obs = torch.from_numpy(np.concatenate([t.obs[:-1] for t in trajs])).to(dev)
+        acts = torch.from_numpy(np.concatenate([t.acts for t in trajs])).to(dev)
+        n = obs.shape[0]
+        log(phase, f"{env}: {len(trajs)} episodes, {n} transitions, {mb:.2f} MB of Arrow read in "
+                   f"{t_read:.4f} s, decoded in {t_decode:.4f} s; obs {tuple(obs.shape)} {obs.dtype}")
+
+        t0 = time.perf_counter()
+        policy = serialize.load_policy_from_path(os.path.join(EXPERTS, env, "policy"), device=dev)
+        cpu = copy.deepcopy(policy).cpu()
+        kind = "sac_actor" if isinstance(policy, SACPolicy) else "actor_critic"
+
+        def act(module, x):
+            return module.deterministic_fn()(x)[0]
+
+        def log_prob(module, x, a):
+            if isinstance(module, SACPolicy):
+                return module.log_prob(x, a)
+            return module.distribution(x).log_prob(a.reshape(a.shape[0], -1))
+
+        with torch.no_grad():
+            a_dev = act(policy, obs)
+            lp = log_prob(policy, obs, acts)
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t0
+            a_cpu = act(cpu, obs.cpu())
+            lp_cpu = log_prob(cpu, obs.cpu(), acts.cpu())
+        scale = a_cpu.abs().max().item()
+        err = (a_dev.cpu() - a_cpu).abs().max().item()
+        floor = nudged_floor(torch, act, cpu, obs.cpu()[:4096])
+        limit = max(1e-5, 4 * floor) * scale
+        finite = torch.isfinite(lp)
+        lp_err = (lp.cpu() - lp_cpu).abs().max().item() / max(lp_cpu.abs().max().item(), 1.0)
+        ret = float(np.mean([t.rews.sum() for t in trajs]))
+        log(phase, f"{env}: {kind} {policy.hid_sizes if kind == 'sac_actor' else policy.net.hid_sizes} loaded "
+                   f"and run on {n} demo observations in {t_fwd:.3f} s; deterministic actions card vs CPU max abs "
+                   f"diff {err:.3g} (largest action {scale:.4g}, float32 floor {floor:.3g}, limit {limit:.3g}); "
+                   f"mean log-prob of the demo actions {lp[finite].mean().item():.6g} ({int(finite.sum())} of {n} "
+                   f"finite; card vs CPU {lp_err:.3g} of the largest); demo return mean {ret:.6g} against the "
+                   f"expert's evaluation return {summary[env]:.6g} (summary.json)")
+        if not (err <= limit and bool(torch.isfinite(a_dev).all())):
+            raise AssertionError(f"{phase}: {env} expert's actions on the card disagree with the CPU's")
+        if not (finite.any() and lp_err <= 1e-4):
+            raise AssertionError(f"{phase}: {env} expert's log-probabilities on the card disagree with the CPU's")
+
+
+def run_bc_seals_half_cheetah(torch, dev, epochs=2):
+    """``BC.train`` on the 48 seals/HalfCheetah-v1 expert episodes (48,000
+    transitions, read by the port's Arrow reader) at
+    benchmarking/run_parity.py's HalfCheetah settings (FeedForward32 with
+    normalize_features, batch 64, l2 5.73e-3, lr 8.06e-3), ``epochs`` epochs
+    instead of 20: one host read per epoch, loss falling and prob_true_act
+    rising on the demos, steps/s, 50 profiled steps, and a save/load round
+    trip. Its returns need MuJoCo, which the card's machine lacks."""
+    import tempfile
+
+    from imitation_tpu_torch.algorithms.bc import BC
+    from imitation_tpu_torch.data import serialize as data_serialize
+    from imitation_tpu_torch.models.policies import FeedForward32Policy
+    from imitation_tpu_torch.policies import serialize
+
+    phase = "bc_seals_half_cheetah"
+    env = os.path.join(EXPERTS, "seals_half_cheetah")
+    expert = serialize.load_policy_from_path(os.path.join(env, "policy"), device="cpu")
+    space = expert.observation_space, expert.action_space
+    t0 = time.perf_counter()
+    demos = data_serialize.load(os.path.join(env, "rollouts"))
+    bc = BC(observation_space=space[0], action_space=space[1], demonstrations=demos,
+            policy=FeedForward32Policy(*space, normalize_features=True), rng=0, batch_size=64,
+            l2_weight=5.73e-3, optimizer_kwargs=dict(learning_rate=8.06e-3), custom_logger=make_logger(),
+            device=dev)
+    torch.cuda.synchronize()
+    log(phase, f"{len(demos)} episodes -> {bc._demo_store.num_samples} transitions on the card in "
+               f"{time.perf_counter() - t0:.3f} s (read, decode, flatten, copy); run_parity's 20 epochs cut to "
+               f"{epochs}")
+    before = demo_metrics(torch, bc)
+    timed_epochs(torch, phase, bc, n_epochs=epochs)
+    after = demo_metrics(torch, bc)
+    for row in bc.logger.rows:
+        log(phase, f"logged at batch {row['mean/bc/batch']}: loss {row['mean/bc/loss']:.4g}, "
+                   f"prob_true_act {row['mean/bc/prob_true_act']:.4g}")
+    check_learned(phase, before, after)
+    if not after["loss"] < before["loss"]:
+        raise AssertionError(f"{phase}: the loss on the demos did not fall")
+    profile_bc(torch, phase, bc)
+    with tempfile.TemporaryDirectory(prefix="bc_seals_") as path:
+        serialize.save_policy(path, bc.policy)
+        loaded = serialize.load_policy_from_path(path, device=dev)
+        same = all(torch.equal(loaded.state_dict()[k], v) for k, v in bc.policy.state_dict().items())
+    log(phase, f"save_policy + load_policy_from_path: every weight and statistic equal: {same}")
+    if not same:
+        raise AssertionError(f"{phase}: the reloaded policy differs from the trained one")
+
+
+def run_bc_dict_obs(torch, dev, n=65_536, batch_size=256, epochs=2):
+    """BC on dict observations made on the card, as
+    tests/algorithms/test_bc_dictobs.py: ``{"pos": [n, 3], "vel": [n, 2]}``
+    normal draws, Discrete(2) labels ``pos[:, 0] > 0``, a ``DictSpace``
+    FeedForward32 policy; ``n`` transitions at ``batch_size`` (the test's 16
+    would be 4,096 steps an epoch). Accuracy on the demos above 0.9, the
+    policy on the card against the CPU."""
+    from imitation_tpu_torch import make_generator
+    from imitation_tpu_torch.algorithms.bc import BC
+    from imitation_tpu_torch.data.types import TransitionBatch
+    from imitation_tpu_torch.envs.base import DictSpace, Space
+
+    phase = "bc_dict_obs"
+    g = make_generator(0, dev)
+    obs = {"pos": torch.randn(n, 3, generator=g, device=dev), "vel": torch.randn(n, 2, generator=g, device=dev)}
+    acts = (obs["pos"][:, 0] > 0).to(torch.int32)
+    zeros = torch.zeros(n, device=dev)
+    demos = TransitionBatch(obs=obs, acts=acts, next_obs=obs, dones=zeros, rews=zeros)
+    obs_space = DictSpace(spaces={"pos": Space.box(-10, 10, (3,)), "vel": Space.box(-10, 10, (2,))})
+    act_space = Space.discrete(2)
+    bc = BC(observation_space=obs_space, action_space=act_space, demonstrations=demos, rng=0,
+            batch_size=batch_size, custom_logger=make_logger(), device=dev)
+    before = demo_metrics(torch, bc)
+    timed_epochs(torch, phase, bc, n_epochs=epochs)
+    check_learned(phase, before, demo_metrics(torch, bc))
+    with torch.no_grad():
+        acc = (bc.policy.distribution(obs).mode() == acts).float().mean().item()
+        cpu = copy.deepcopy(bc.policy).cpu()
+        x = {k: v[:4096] for k, v in obs.items()}
+        err = (bc.policy.distribution(x).logits.cpu()
+               - cpu.distribution({k: v.cpu() for k, v in x.items()}).logits).abs().max().item()
+    log(phase, f"{n} dict transitions {{pos: 3, vel: 2}} at batch {batch_size}: accuracy on the demos {acc:.4f} "
+               f"(limit > 0.9); logits card vs CPU on 4096 rows max abs diff {err:.3g}; first layer "
+               f"{bc.policy.net.pi0.in_features} wide ({sorted(obs)} concatenated)")
+    if not acc > 0.9:
+        raise AssertionError(f"{phase}: accuracy {acc:.4f} on the dict-observation demos")
+    if not err <= 1e-4:
+        raise AssertionError(f"{phase}: the dict-observation policy on the card disagrees with the CPU's")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(EXPERTS):
+        print(f"chip_smoke: the seals experts are missing ({EXPERTS}); the checkout is incomplete",
+              file=sys.stderr)
         return 1
     from imitation_tpu_torch.ops import kernels
 
@@ -2421,6 +2625,18 @@ def main() -> int:
     run_bc_nature_cnn(torch, dev)
     log("bc_nature_cnn", f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
     log("image", f"the image phases took {time.perf_counter() - t_image:.2f} s")
+
+    # The repo's seals experts and demos read by the port's own readers, BC
+    # on them and BC on dict observations: neither kernel is on these paths.
+    t_seals = time.perf_counter()
+    for phase, fn in (("experts_seals", lambda: run_experts_seals(torch, dev)),
+                      ("bc_seals_half_cheetah", lambda: run_bc_seals_half_cheetah(torch, dev)),
+                      ("bc_dict_obs", lambda: run_bc_dict_obs(torch, dev))):
+        t0 = time.perf_counter()
+        zero_counts()
+        fn()
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+    log("seals", f"the seals and dict-observation phases took {time.perf_counter() - t_seals:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

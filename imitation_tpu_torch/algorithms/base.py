@@ -12,6 +12,10 @@ Port of ``imitation_tpu/algorithms/base.py``:
   device-resident ``TransitionBatch``, with epoch-shuffled minibatch index
   matrices drawn on the device (``epoch_indices``) and with-replacement
   minibatches (``sample``).
+
+Demonstrations are trajectories (a list, or a lazily decoded
+``huggingface_utils.TrajectoryDatasetSequence``), host transitions or a
+``TransitionBatch``; observations may be ``DictObs``.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ Port of ``imitation_tpu/algorithms/bc.py``. The loss is
 
 where ``||theta||`` is the norm (not its square) of every parameter of the
 policy (``log_std`` included, the feature normalizer's buffers not).
-Demonstrations live on the device as one ``TransitionBatch``; an epoch's
+Demonstrations (trajectories, a ``TrajectoryDatasetSequence`` of the
+HuggingFace format, transitions; array or ``DictObs`` observations) live on
+the device as one ``TransitionBatch``; an epoch's
 shuffled index matrix is drawn there too, and each minibatch is a gather of
 its rows. Where the JAX package scans an epoch inside one program, the port
 runs one eager step per minibatch, keeps each step's metrics on the device
@@ -27,6 +29,7 @@ import torch
 from imitation_tpu_torch import Device, default_device, make_generator
 from imitation_tpu_torch.algorithms import base
 from imitation_tpu_torch.data import rollout as rollout_mod
+from imitation_tpu_torch.data import types
 from imitation_tpu_torch.envs.base import Space
 from imitation_tpu_torch.envs.vector import VectorEnv
 from imitation_tpu_torch.models.policies import ActorCriticPolicy, FeedForward32Policy
@@ -59,7 +62,7 @@ def loss_calculator(
     """The BC loss: ``(obs, acts) -> (loss, metrics)``, where ``metrics`` is
     the ``[7]`` stack of the ``BCTrainingMetrics`` fields, detached."""
 
-    def loss_fn(obs: torch.Tensor, acts: torch.Tensor):
+    def loss_fn(obs: types.ObsTensor, acts: torch.Tensor):
         dist = policy.distribution(obs)
         if not policy.action_space.is_discrete:
             acts = acts.reshape(acts.shape[0], -1)
@@ -151,15 +154,14 @@ class BC(base.DemonstrationAlgorithm):
         params = list(self._policy.parameters())
         rows = []
         for row in idx:
-            obs, acts = batch.obs[row], batch.acts[row]
             self.optimizer.zero_grad()
             if n_micro == 1:
-                loss, metrics = self.loss_fn(obs, acts)
+                loss, metrics = self.loss_fn(types.map_obs(lambda x: x[row], batch.obs), batch.acts[row])
                 loss.backward()
             else:
                 summed = []
-                for o, a in zip(obs.split(self.minibatch_size), acts.split(self.minibatch_size)):
-                    loss, m = self.loss_fn(o, a)
+                for micro in row.split(self.minibatch_size):
+                    loss, m = self.loss_fn(types.map_obs(lambda x: x[micro], batch.obs), batch.acts[micro])
                     loss.backward()  # gradients add up in .grad
                     summed.append(m)
                 with torch.no_grad():

@@ -277,9 +277,10 @@ def flatten_trajectories(trajectories: Sequence[types.Trajectory]) -> types.Tran
     """Flattens trajectories into host transitions.
 
     ``dones`` marks the last step of each terminal trajectory; ``infos`` are
-    empty dicts where a trajectory has none.
+    empty dicts where a trajectory has none; ``DictObs`` observations are
+    concatenated per key.
     """
-    parts: Dict[str, List[np.ndarray]] = {k: [] for k in ("obs", "next_obs", "acts", "dones", "infos")}
+    parts: Dict[str, List[Any]] = {k: [] for k in ("obs", "next_obs", "acts", "dones", "infos")}
     for traj in trajectories:
         parts["obs"].append(traj.obs[:-1])
         parts["next_obs"].append(traj.obs[1:])
@@ -288,7 +289,9 @@ def flatten_trajectories(trajectories: Sequence[types.Trajectory]) -> types.Tran
         dones[-1] = traj.terminal
         parts["dones"].append(dones)
         parts["infos"].append(np.array([{}] * len(traj)) if traj.infos is None else traj.infos)
-    return types.Transitions(**{k: np.concatenate(v) for k, v in parts.items()})
+    cat = {k: types.concatenate_maybe_dictobs(v) if k in ("obs", "next_obs") else np.concatenate(v)
+           for k, v in parts.items()}
+    return types.Transitions(**{k: types.maybe_unwrap_dictobs(v) for k, v in cat.items()})
 
 
 def flatten_trajectories_with_rew(
@@ -296,7 +299,7 @@ def flatten_trajectories_with_rew(
 ) -> types.TransitionsWithRew:
     transitions = flatten_trajectories(trajectories)
     return types.TransitionsWithRew(
-        **{f.name: getattr(transitions, f.name) for f in dataclasses.fields(transitions)},
+        **types.dataclass_quick_asdict(transitions),
         rews=np.concatenate([traj.rews for traj in trajectories]),
     )
 

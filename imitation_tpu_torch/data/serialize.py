@@ -1,21 +1,35 @@
-"""Trajectory (de)serialization in the ``.npz`` directory format.
+"""Trajectory (de)serialization.
 
-Port of the ``.npz`` path of ``imitation_tpu/data/serialize.py``: ``save``
-writes ``<path>/trajectories.npz`` with arrays ``obs_i``, ``acts_i``,
-``terminal_i`` and, when every trajectory has rewards, ``rews_i``, plus the
-count ``n``; ``load`` reads it back, rewards as float64. A directory written
-by either package loads in the other. ``infos`` are not stored. The
-HuggingFace ``datasets`` format and the legacy formats are not ported.
+Port of ``imitation_tpu/data/serialize.py``. ``save`` writes the ``.npz``
+directory format (``<path>/trajectories.npz`` with arrays ``obs_i``,
+``acts_i``, ``terminal_i`` and, when every trajectory has rewards,
+``rews_i``, plus the count ``n``), which the JAX package writes where
+``datasets`` is absent; ``infos`` are not stored. ``load`` reads, as the
+JAX package's does:
+
+* that ``.npz`` directory;
+* a HuggingFace ``datasets`` directory (``dataset_info.json`` beside
+  Arrow files, as the repo's expert demos are), through the port's own
+  Arrow reader: a lazily decoded ``TrajectoryDatasetSequence``;
+* the reference's legacy flat ``.npz`` (concatenated arrays split by
+  ``indices``), with a ``DeprecationWarning``;
+* the reference's legacy ``.pkl`` (a pickled list of trajectories, its
+  classes mapped to the port's by name), refusing a git-lfs pointer;
+  unpickling runs code, so load only files of a trusted source.
+
+Rewards load as float64.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import warnings
 from typing import Sequence
 
 import numpy as np
 
-from imitation_tpu_torch.data import types
+from imitation_tpu_torch.data import huggingface_utils, types
 
 NPZ_NAME = "trajectories.npz"
 
@@ -26,7 +40,7 @@ def save(path: str, trajectories: Sequence[types.Trajectory]) -> None:
     has_rew = all(isinstance(t, types.TrajectoryWithRew) for t in trajectories)
     arrays = {}
     for i, t in enumerate(trajectories):
-        arrays[f"obs_{i}"] = np.asarray(t.obs)
+        arrays[f"obs_{i}"] = np.asarray(types.maybe_unwrap_dictobs(t.obs))
         arrays[f"acts_{i}"] = np.asarray(t.acts)
         arrays[f"terminal_{i}"] = np.asarray(t.terminal)
         if has_rew:
@@ -36,21 +50,69 @@ def save(path: str, trajectories: Sequence[types.Trajectory]) -> None:
 
 
 def load(path: str) -> Sequence[types.Trajectory]:
-    """Loads the trajectories ``save`` wrote to the directory ``path``."""
+    """Loads the trajectories at ``path`` in any of the formats above."""
     npz_path = os.path.join(path, NPZ_NAME)
-    if not os.path.exists(npz_path):
-        raise FileNotFoundError(f"no {NPZ_NAME} in {path!r}")
-    out = []
+    if os.path.exists(npz_path):
+        return _load_npz(npz_path)
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, huggingface_utils.DATASET_INFO)):
+        return huggingface_utils.TrajectoryDatasetSequence(huggingface_utils.load_dataset_dir(path))
+    if path.endswith(".npz") and os.path.exists(path):
+        warnings.warn("Loading legacy npz trajectory format", DeprecationWarning)
+        with np.load(path, allow_pickle=True) as data:
+            if "indices" in data.files:
+                return _load_reference_npz(data)
+        return _load_npz(path)
+    if path.endswith(".pkl") and os.path.exists(path):
+        warnings.warn("Loading legacy pickle trajectory format", DeprecationWarning)
+        return _load_reference_pkl(path)
+    raise FileNotFoundError(f"no trajectory data found at {path!r}")
+
+
+def _trajectory(obs, acts, terminal, rews=None) -> types.Trajectory:
+    kwargs = dict(obs=obs, acts=acts, infos=None, terminal=bool(terminal))
+    if rews is None:
+        return types.Trajectory(**kwargs)
+    return types.TrajectoryWithRew(rews=np.asarray(rews).astype(np.float64), **kwargs)
+
+
+def _load_npz(npz_path: str) -> Sequence[types.Trajectory]:
     with np.load(npz_path, allow_pickle=False) as data:
-        for i in range(int(data["n"])):
-            kwargs = dict(
-                obs=data[f"obs_{i}"],
-                acts=data[f"acts_{i}"],
-                infos=None,
-                terminal=bool(data[f"terminal_{i}"]),
+        return [_trajectory(data[f"obs_{i}"], data[f"acts_{i}"], data[f"terminal_{i}"],
+                            data[f"rews_{i}"] if f"rews_{i}" in data else None)
+                for i in range(int(data["n"]))]
+
+
+def _load_reference_npz(data) -> Sequence[types.Trajectory]:
+    """The reference's legacy flat format: ``obs``, ``acts`` (and ``rews``)
+    concatenated over trajectories, split at ``indices``; each trajectory
+    has one more observation than actions, so the i-th observation split
+    falls ``i + 1`` rows later."""
+    idx = np.asarray(data["indices"])
+    obs = np.split(data["obs"], idx + np.arange(len(idx)) + 1)
+    acts = np.split(data["acts"], idx)
+    rews = np.split(data["rews"], idx) if "rews" in data.files else None
+    terminal = np.asarray(data["terminal"])
+    return [_trajectory(obs[i], acts[i], terminal[i], None if rews is None else rews[i])
+            for i in range(len(terminal))]
+
+
+class _FieldMapper(pickle.Unpickler):
+    """Resolves the reference's trajectory classes to the port's by name."""
+
+    def find_class(self, module, name):
+        if name == "TrajectoryWithRew":
+            return types.TrajectoryWithRew
+        if name == "Trajectory":
+            return types.Trajectory
+        return super().find_class(module, name)
+
+
+def _load_reference_pkl(path: str) -> Sequence[types.Trajectory]:
+    with open(path, "rb") as f:
+        if f.read(12).startswith(b"version http"):
+            raise ValueError(
+                f"{path!r} is a git-lfs pointer, not pickle data; "
+                "run `git lfs pull` in the source repo first"
             )
-            if f"rews_{i}" in data:
-                out.append(types.TrajectoryWithRew(rews=data[f"rews_{i}"].astype(np.float64), **kwargs))
-            else:
-                out.append(types.Trajectory(**kwargs))
-    return out
+        f.seek(0)
+        return list(_FieldMapper(f).load())

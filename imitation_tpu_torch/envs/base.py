@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +82,33 @@ class Space:
             low=np.asarray(low, dtype),
             high=np.asarray(high, dtype),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DictSpace:
+    """A dict observation space: name -> ``Space``. Observations are dicts
+    of tensors; policies flatten each and concatenate them in sorted key
+    order (the reference's ``CombinedExtractor``)."""
+
+    spaces: Dict[str, Space]
+
+    @property
+    def is_discrete(self) -> bool:
+        return False
+
+    @property
+    def flat_dim(self) -> int:
+        return sum(s.flat_dim for s in self.spaces.values())
+
+    def keys(self):
+        return self.spaces.keys()
+
+    def __getitem__(self, k: str) -> Space:
+        return self.spaces[k]
+
+    @property
+    def shape(self) -> Dict[str, Tuple[int, ...]]:
+        return {k: s.shape for k, s in self.spaces.items()}
 
 
 @dataclasses.dataclass

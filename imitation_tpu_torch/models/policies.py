@@ -20,6 +20,11 @@ flatten in flax's NHWC order (h, w, c), and ``cnn_fc`` (512, ReLU).
 (parameters and feature statistics stay float32; logits and values come
 back float32).
 
+Dict observations (a ``DictSpace``; a dict of ``[B, ...]`` tensors) are
+flattened per key and concatenated in sorted key order before
+``feat_norm``, as the JAX package's ``ActorCriticNet`` does (the reference's
+``CombinedExtractor``).
+
 ``FeedForward32Policy`` is the (32, 32) actor-critic; ``RandomPolicy`` and
 ``ZeroPolicy`` are the non-trainable baselines, with the same rollout
 closures.
@@ -28,14 +33,14 @@ closures.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from imitation_tpu_torch import make_generator
-from imitation_tpu_torch.envs.base import Space
+from imitation_tpu_torch.envs.base import DictSpace, Space
 from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.models.distributions import Categorical, DiagGaussian
 
@@ -43,6 +48,14 @@ from imitation_tpu_torch.models.distributions import Categorical, DiagGaussian
 # NatureCNN's convs: (name, out channels, kernel, stride), all VALID.
 NATURE_CNN = (("conv32_8", 32, 8, 4), ("conv64_4", 64, 4, 2), ("conv64_3", 64, 3, 1))
 FEATURES = ("flatten", "nature_cnn")
+
+
+def features_dim(space: Union[Space, DictSpace]) -> int:
+    """The width of the flattened observation: a dict space's sub-spaces
+    each flattened to their shape's size (a discrete one to 1)."""
+    if isinstance(space, DictSpace):
+        return sum(int(np.prod(s.shape)) for s in space.spaces.values())
+    return space.flat_dim
 
 
 def nature_cnn_flat_dim(obs_shape: Sequence[int]) -> int:
@@ -127,8 +140,11 @@ class ActorCriticNet(nn.Module):
         if self.feat_norm is not None:
             self.feat_norm.reset_stats()
 
-    def _extract(self, obs: torch.Tensor) -> torch.Tensor:
+    def _extract(self, obs) -> torch.Tensor:
         """The features before ``feat_norm``, in the compute dtype."""
+        if isinstance(obs, Mapping):
+            return torch.cat([obs[k].reshape(obs[k].shape[0], -1).to(self.compute_dtype)
+                              for k in sorted(obs)], dim=-1)
         if self.features == "flatten":
             return obs.reshape(obs.shape[0], -1).to(self.compute_dtype)
         x = obs.to(self.compute_dtype)
@@ -192,14 +208,14 @@ class ActorCriticPolicy(nn.Module):
         self.normalize_features = normalize_features
         self.features = features
         self.net = ActorCriticNet(
-            observation_space.flat_dim,
+            features_dim(observation_space),
             action_space,
             hid_sizes=hid_sizes,
             activation=activation,
             normalize_features=normalize_features,
             log_std_init=log_std_init,
             features=features,
-            obs_shape=tuple(observation_space.shape),
+            obs_shape=None if isinstance(observation_space, DictSpace) else tuple(observation_space.shape),
         )
 
     def init(self, generator: Optional[torch.Generator] = None) -> "ActorCriticPolicy":
@@ -240,11 +256,15 @@ class ActorCriticPolicy(nn.Module):
 
     def predict(self, obs, deterministic: bool = False, seed: int = 0) -> np.ndarray:
         """SB3-style host prediction: numpy observations in (one, or a batch
-        with a leading axis), numpy actions out. Sampling draws from a
-        generator seeded with ``seed`` on the policy's device."""
+        with a leading axis; a dict of batches for dict observations),
+        numpy actions out. Sampling draws from a generator seeded with
+        ``seed`` on the policy's device."""
         device = next(self.parameters()).device
-        obs_t = torch.as_tensor(np.asarray(obs), device=device)
-        single = obs_t.dim() == len(self.observation_space.shape)
+        if isinstance(obs, Mapping):
+            obs_t, single = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in obs.items()}, False
+        else:
+            obs_t = torch.as_tensor(np.asarray(obs), device=device)
+            single = obs_t.dim() == len(self.observation_space.shape)
         if single:
             obs_t = obs_t[None]
         fn = self.deterministic_fn() if deterministic else self.sample_fn()

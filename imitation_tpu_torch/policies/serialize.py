@@ -6,8 +6,12 @@ Port of ``imitation_tpu/policies/serialize.py`` for actor-critic policies
 directory holding ``policy_config.json``, with the same schema and values
 the JAX package writes (architecture, features and spaces), and
 ``policy.pt``, a ``torch.save`` of the module's ``state_dict`` with tensors
-on the CPU. Reading the JAX package's ``variables.msgpack`` is not ported.
-``load_policy`` looks loaders up by type: ``random``, ``zero`` and ``saved``.
+on the CPU. ``load_policy_from_path`` also reads a directory the JAX package
+wrote (``policy_config.json`` and ``variables.msgpack``, flax's msgpack,
+read by ``util.flax_msgpack`` and carried over by ``convert``), as the
+repo's experts under ``output/experts/<env>/policy`` are.
+``load_policy`` looks loaders up by type: ``random``, ``zero`` and ``saved``;
+``SavePolicyCallback`` saves a policy every few learner updates.
 """
 
 from __future__ import annotations
@@ -19,16 +23,18 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from imitation_tpu_torch import Device, default_device
+from imitation_tpu_torch import Device, convert, default_device
 from imitation_tpu_torch.envs.base import Space
 from imitation_tpu_torch.envs.vector import VectorEnv
 from imitation_tpu_torch.models.policies import ActorCriticPolicy, RandomPolicy, ZeroPolicy
 from imitation_tpu_torch.rl.sac import SACPolicy
+from imitation_tpu_torch.util import flax_msgpack
 
 SavedPolicy = Union[ActorCriticPolicy, SACPolicy]
 
 POLICY_CONFIG = "policy_config.json"
 POLICY_WEIGHTS = "policy.pt"
+POLICY_VARS = "variables.msgpack"  # the JAX package's weights
 
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -116,13 +122,23 @@ def save_policy(path: str, policy: SavedPolicy) -> None:
 
 
 def load_policy_from_path(path: str, device: Optional[Device] = None) -> SavedPolicy:
-    """Loads a policy ``save_policy`` wrote, onto ``device`` (CUDA unless
-    the caller says ``"cpu"``)."""
+    """Loads a policy ``save_policy`` wrote, or one the JAX package saved
+    (``variables.msgpack`` and no ``policy.pt``), onto ``device`` (CUDA
+    unless the caller says ``"cpu"``). Every weight must be present."""
     dev = default_device(device)
     with open(os.path.join(path, POLICY_CONFIG)) as f:
         policy = policy_from_config(json.load(f))
-    state = torch.load(os.path.join(path, POLICY_WEIGHTS), map_location="cpu", weights_only=True)
-    policy.load_state_dict(state)
+    weights = os.path.join(path, POLICY_WEIGHTS)
+    if os.path.exists(weights):
+        policy.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    elif os.path.exists(os.path.join(path, POLICY_VARS)):
+        variables = flax_msgpack.read_msgpack(os.path.join(path, POLICY_VARS))
+        if isinstance(policy, SACPolicy):
+            policy.actor.load_state_dict(convert.sac_actor_state_dict(variables))
+        else:
+            policy.load_state_dict(convert.policy_state_dict(variables))
+    else:
+        raise FileNotFoundError(f"neither {POLICY_WEIGHTS} nor {POLICY_VARS} in {path!r}")
     return policy.to(dev)
 
 
@@ -156,3 +172,20 @@ def load_policy(policy_type: str, venv: VectorEnv, **kwargs):
     if policy_type not in policy_registry:
         raise KeyError(f"unknown policy type {policy_type!r}; known: {sorted(policy_registry)}")
     return policy_registry[policy_type](venv, **kwargs)
+
+
+class SavePolicyCallback:
+    """A learner callback (``callback(state, metrics)``) that saves
+    ``policy``, whose weights the learner trains in place, to
+    ``policy_dir/<count:012d>`` every ``save_interval_updates`` calls."""
+
+    def __init__(self, policy_dir: str, policy: SavedPolicy, save_interval_updates: int = 1):
+        self.policy_dir = policy_dir
+        self.policy = policy
+        self.save_interval = save_interval_updates
+        self._count = 0
+
+    def __call__(self, state: Any = None, metrics: Any = None) -> None:
+        self._count += 1
+        if self._count % self.save_interval == 0:
+            save_policy(os.path.join(self.policy_dir, f"{self._count:012d}"), self.policy)

@@ -4,8 +4,9 @@ Port of ``imitation_tpu/rewards/serialize.py``. A saved reward net is a
 directory holding ``reward_config.json``, with the JAX package's schema
 (``net_class``, ``net_kwargs``, a wrapped net's ``base``, the spaces), and
 ``reward_net.pt``, a ``torch.save`` of the module's ``state_dict`` with
-tensors on the CPU. Reading the JAX package's ``variables.msgpack`` is not
-ported.
+tensors on the CPU. ``load_reward_net`` also reads a directory the JAX
+package wrote (``reward_config.json`` and ``variables.msgpack``, read by
+``util.flax_msgpack`` and carried over by ``convert``).
 
 The registry maps a reward type to a loader that returns a ``RewardFn``
 (numpy in and out) for a checkpoint, checking that the checkpoint's wrappers
@@ -29,15 +30,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from imitation_tpu_torch import Device, default_device
+from imitation_tpu_torch import Device, convert, default_device
 from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.policies.serialize import _space_from_json, _space_to_json
 from imitation_tpu_torch.rewards import reward_nets
 from imitation_tpu_torch.rewards.reward_function import RewardFn
-from imitation_tpu_torch.util import registry
+from imitation_tpu_torch.util import flax_msgpack, registry
 
 REWARD_CONFIG = "reward_config.json"
 REWARD_WEIGHTS = "reward_net.pt"
+REWARD_VARS = "variables.msgpack"  # the JAX package's weights
 
 _NET_CLASSES: Dict[str, Callable[..., reward_nets.RewardNet]] = {
     "BasicRewardNet": reward_nets.BasicRewardNet,
@@ -103,15 +105,22 @@ def _build_net(config: Dict[str, Any], obs_space, act_space) -> reward_nets.Rewa
 
 
 def load_reward_net(path: str, device: Optional[Device] = None) -> reward_nets.RewardNet:
-    """The net ``save_reward_net`` wrote, on ``device`` (CUDA unless the
-    caller says ``"cpu"``)."""
+    """The net ``save_reward_net`` wrote, or one the JAX package saved
+    (``variables.msgpack`` and no ``reward_net.pt``), on ``device`` (CUDA
+    unless the caller says ``"cpu"``). Every weight must be present."""
     dev = default_device(device)
     with open(os.path.join(path, REWARD_CONFIG)) as f:
         config = json.load(f)
     net = _build_net(
         config, _space_from_json(config["observation_space"]), _space_from_json(config["action_space"])
     )
-    state = torch.load(os.path.join(path, REWARD_WEIGHTS), map_location="cpu", weights_only=True)
+    weights = os.path.join(path, REWARD_WEIGHTS)
+    if os.path.exists(weights):
+        state = torch.load(weights, map_location="cpu", weights_only=True)
+    elif os.path.exists(os.path.join(path, REWARD_VARS)):
+        state = convert.reward_net_state_dict(flax_msgpack.read_msgpack(os.path.join(path, REWARD_VARS)))
+    else:
+        raise FileNotFoundError(f"neither {REWARD_WEIGHTS} nor {REWARD_VARS} in {path!r}")
     net.load_state_dict(state)
     return net.to(dev)
 
