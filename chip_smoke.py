@@ -13,10 +13,12 @@ Phases, each timed and printed on its own line:
    paths' shapes and at edge shapes. B1 GAE allclose at rtol = atol = 1e-5
    (it composes segments of the scan, so it sums in another order), printing
    its grid at each shape; the main paths' [128, 1024], [256, 8], [64, 32],
-   [128, 8], [64, 16] and [32, 8] with float32 and with bool flag panels.
+   [128, 8], [64, 16], [32, 8] and the CLI's [128, 64] with float32 and
+   with bool flag panels.
    B2 disc-batch assembly exactly: a GAIL
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
-   the latter also at the CLI defaults' sizes, each four fields in one
+   the latter also at the CLI defaults' sizes, and GAIL at gail_cartpole's
+   (demo 5,000 rows, replay 8,192, B = 1024), each four fields in one
    launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
    1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
    bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
@@ -25,8 +27,9 @@ Phases, each timed and printed on its own line:
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
    [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
-   [128, 8], density's [64, 16] and the pixel tutorial's [32, 8], B2 per
-   disc step (the CLI defaults' and both image-row shapes included). ``device_ms`` is the kernel's own device
+   [128, 8], density's [64, 16], the pixel tutorial's [32, 8] and
+   gail_cartpole's [128, 64], B2 per disc step (the CLI defaults',
+   gail_cartpole's and both image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -142,9 +145,9 @@ Phases, each timed and printed on its own line:
    ``ShapedRewardNet(CnnRewardNet, BasicPotentialCNN)`` on the same demos;
    the test reward against the train reward.
 26. rlhf_pixel_cartpole: the ported tutorial's loop (``build``: 8 envs,
-   ``CnnRewardNet(hid_channels=(8, 8))``, PPO n_steps 32) at its own
-   ``__main__`` budget (30,000 timesteps, 300 comparisons), uncut: B1 at
-   [32, 8] once per PPO iteration; the reward's fit printed (CartPole's
+   ``CnnRewardNet(hid_channels=(8, 8))``, PPO n_steps 32) at half its
+   ``__main__`` budget (15,000 of 30,000 timesteps, its 300 comparisons):
+   B1 at [32, 8] once per PPO iteration (90); the reward's fit printed (CartPole's
    reward is 1 a step, so the synthetic preferences are coin flips), one
    reward update on the card against a CPU copy, and a 3-member
    ``RewardEnsemble`` of the tutorial's ``CnnRewardNet``s: fragment
@@ -182,6 +185,34 @@ Phases, each timed and printed on its own line:
    made on the card, as tests/algorithms/test_bc_dictobs.py (batch 256
    instead of 16), 2 epochs: accuracy above 0.9, the policy on the card
    against the CPU. Neither kernel is on phases 28-30.
+31. cli_gail_cartpole: ``python -m imitation_tpu_torch train_adversarial gail
+   with gail_cartpole total_timesteps=32768`` run in-process through
+   ``ex.run_cli`` (every CLI phase logs under a temporary directory and
+   takes the default device, CUDA): the tuned config at its widths (64
+   envs x 128 steps, PPO batch 128 = 64 minibatches x 5 epochs, lr 1e-3,
+   ent 0.01, demo batch 1024, 4 disc updates, 10 scripted demos), cut from
+   500,000 timesteps to 4 rounds: s per round, B1 4 launches at [128, 64]
+   and B2 16 (asserted), the run directory's files, imit_stats/return_mean;
+   checkpoints/final's gen_policy and reward_test reloaded onto the card
+   and held against the trainer on 4096 replay rows (within 1e-6).
+32. cli_airl_pendulum: ``train_adversarial airl with env_name=Pendulum-v1
+   total_timesteps=4096`` (2 rounds at the CLI defaults, 8 x 256: B1 2 at
+   [256, 8], B2 8), then ``train_rl with pendulum
+   reward_type=RewardNet_unshaped reward_path=<its reward_test>
+   total_timesteps=4096`` (B1 2 at [256, 8]); the transferred reward on the
+   card against the CPU.
+33. cli_imitation_cartpole: ``train_imitation bc with bc_cartpole
+   bc.n_epochs=2``, ``dagger with dagger_cartpole
+   dagger.total_timesteps=2000``, ``sqil with sqil_cartpole
+   sqil.total_timesteps=5000``, then ``eval_policy`` of the saved BC policy
+   (``expert.policy_type=saved``), plain and with ``explore_kwargs``:
+   returns printed, no kernel launched (asserted).
+34. cli_preference_pendulum: ``train_preference_comparisons with active
+   env_name=Pendulum-v1 num_iterations=2 total_timesteps=4096
+   total_comparisons=80`` (rlhf_active_pendulum's cuts): B1 6 at [128, 8].
+35. cli_main: ``python -m imitation_tpu_torch train_imitation bc with fast``
+   in a subprocess from the checkout: exit 0, run.json COMPLETED, the
+   kernel library in ``_build/`` untouched.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -219,7 +250,8 @@ Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
 airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
-bc_nature_cnn) is driven with the kernels' launch counts set to 0 just
+bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
+cli_preference_pendulum) is driven with the kernels' launch counts set to 0 just
 before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
@@ -232,12 +264,14 @@ line ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 from __future__ import annotations
 
 import copy
+import datetime
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 non-tensor rate.
@@ -346,14 +380,15 @@ def check_kernels(torch, dev):
 
     # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
     # the RLHF CLI's, density's and the pixel tutorial's PPO iterations
-    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8))
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl,
     # gail_pixel_cartpole), [256, 8] (airl_cli, airl_pixel_cartpole), [64, 32]
     # (rlhf_pendulum), [128, 8] (rlhf_active_pendulum), [64, 16]
-    # (density_pendulum) and [32, 8] (rlhf_pixel_cartpole); then the
-    # HalfCheetah path's, edge shapes and a large one.
-    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8))
+    # (density_pendulum), [32, 8] (rlhf_pixel_cartpole) and [128, 64]
+    # (cli_gail_cartpole; the CLI's other PPO paths run [256, 8] and
+    # [128, 8]); then the HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -403,6 +438,7 @@ def check_kernels(torch, dev):
         rlhf_cli=dict(gae_rows[(128, 8)], shape="[128, 8] f32 x5 -> x2"),
         density=dict(gae_rows[(64, 16)], shape="[64, 16] f32 x5 -> x2"),
         rlhf_pixel=dict(gae_rows[(32, 8)], shape="[32, 8] f32 x5 -> x2"),
+        gail_cartpole=dict(gae_rows[(128, 64)], shape="[128, 64] f32 x5 -> x2"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -466,6 +502,9 @@ def check_kernels(torch, dev):
     # replay ring of 8 envs x 256 steps, demo batch 1024.
     airl_cli = check_fused("AIRL disc step at the CLI defaults", 2000, 2048, 1024, airl_kinds)
     byte = check_fused("byte path, disc-step size", N, C, Bd, byte_kinds)
+    # train_adversarial gail with gail_cartpole: 10 scripted episodes of 500
+    # rows, a replay ring of 64 envs x 128 steps, demo batch 1024.
+    gail_cli = check_fused("GAIL disc step at gail_cartpole", 5000, 8192, 1024, gail_kinds)
     for name, kinds, n, c, b, spread in (
         ("edge-1row", (((1,), f32, 0),), 5, 5, 1, 0),
         ("edge-out-of-range", (((3,), f32, 0),), 12, 9, 40, 30),
@@ -488,6 +527,7 @@ def check_kernels(torch, dev):
     byte_row = time_b2(torch, "kernels", "byte path (uint8 [., 2, 2], bool, f16 [., 3], f32 [., 2, 2])",
                        *byte, Bd)
     airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
+    gail_cli_row = time_b2(torch, "kernels", "GAIL disc step at gail_cartpole (4 fields)", *gail_cli, 1024)
     pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
     car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
                       *car, 1024)
@@ -507,6 +547,7 @@ def check_kernels(torch, dev):
         airl_disc_step=dict(airl_row, shape="obs/next_obs [., 3] f32, acts [., 1] f32, dones [.] f32"),
         byte_path=dict(byte_row, shape="uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]"),
         airl_cli=dict(airl_cli_row, shape="demo [2000], replay [2048], B=1024, the AIRL fields"),
+        gail_cartpole=dict(gail_cli_row, shape="demo [5000], replay [8192], B=1024, the GAIL fields"),
         pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
                                               f"[., 16, 16, 1] f32, acts [.] int32, dones [.] f32"),
         carracing_rows=dict(car_row, main_path=False,
@@ -2194,8 +2235,8 @@ def pixel_ensemble_check(torch, phase, loop):
 
 
 def run_rlhf_pixel(torch, dev):
-    """The ported tutorial's loop (``build``) at its own ``__main__`` budget,
-    through ``run_rlhf``: CartPole's reward is 1 a step, so every fragment
+    """The ported tutorial's loop (``build``) at half its ``__main__``
+    timesteps, through ``run_rlhf``: CartPole's reward is 1 a step, so every fragment
     of 20 steps returns 20 and the synthetic preferences are coin flips; the
     reward's fit is printed, not asserted (no refit). Then the CNN
     ensemble's check."""
@@ -2206,8 +2247,9 @@ def run_rlhf_pixel(torch, dev):
     phase = "rlhf_pixel_cartpole"
     loop = tutorial.build(dev, make_logger())
     launches, per_iter = run_rlhf(
-        torch, phase, loop, 30_000, 300, ("none: the tutorial's own __main__ budget (30,000 timesteps, "
-                                          "300 comparisons)",),
+        torch, phase, loop, 15_000, 300, ("15,000 timesteps instead of the tutorial's __main__ 30,000 "
+                                          "(90 PPO iterations instead of 177), to keep the script within "
+                                          "its time with the CLI phases; its 300 comparisons kept",),
         true_reward=lambda obs, acts: np.ones(acts.shape, np.float32), refit=False)
     pixel_ensemble_check(torch, phase, loop)
     return launches, per_iter
@@ -2475,6 +2517,257 @@ def run_bc_dict_obs(torch, dev, n=65_536, batch_size=256, epochs=2):
         raise AssertionError(f"{phase}: the dict-observation policy on the card disagrees with the CPU's")
 
 
+# -- the CLI: python -m imitation_tpu_torch <script> ... ------------------------
+
+def run_files(run_dir):
+    """The run directory's files, relative, sorted."""
+    return sorted(os.path.relpath(os.path.join(r, f), run_dir) for r, _, fs in os.walk(run_dir) for f in fs)
+
+
+def cli_run(torch, phase, script, argv, root):
+    """One in-process ``ex.run_cli`` of the port's ``script`` on the default
+    device (CUDA: no ``device`` key given), logging to csv and json files
+    under a fresh ``log_root`` in ``root``; asserts ``run.json`` COMPLETED.
+    Returns (result, run directory)."""
+    import importlib
+
+    ex = importlib.import_module(f"imitation_tpu_torch.scripts.{script}").ex
+    log_root = tempfile.mkdtemp(prefix=f"{phase}_", dir=root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = ex.run_cli(argv + ["log_format_strs=['csv','json']", f"log_root={log_root}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    (env_dir,) = os.listdir(log_root)
+    run_dir = os.path.realpath(os.path.join(log_root, env_dir, "latest"))
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run = json.load(f)
+    if run["status"] != "COMPLETED":
+        raise AssertionError(f"{phase}: {script} {argv} ended {run['status']}")
+    with open(os.path.join(run_dir, "config.json")) as f:
+        if json.load(f)["device"] is not None:
+            raise AssertionError(f"{phase}: the run should take the default device")
+    files = run_files(run_dir)
+    log(phase, f"python -m imitation_tpu_torch {script} {' '.join(argv)}: {seconds:.2f} s; run.json "
+               f"COMPLETED; {len(files)} files: {', '.join(files)}")
+    return result, run_dir
+
+
+def stats_line(stats):
+    return ", ".join(f"{k} {stats[k]:.6g}" for k in ("n_traj", "return_mean", "return_std", "len_mean"))
+
+
+def finite_stats(phase, stats):
+    if not all(math.isfinite(stats[k]) for k in ("return_mean", "return_std", "len_mean")):
+        raise AssertionError(f"{phase}: non-finite evaluation: {stats}")
+
+
+def run_cli_gail_cartpole(torch, dev, root):
+    """``train_adversarial gail with gail_cartpole total_timesteps=32768``:
+    the tuned config at its widths, 4 rounds. Rounds timed by wrapping the
+    trainer's ``train`` (the run is the CLI's own); B1 once per round at
+    [128, 64], B2 once per disc step (16); the final checkpoints reloaded on
+    the card against the trainer's own outputs on its replay rows."""
+    from imitation_tpu_torch.algorithms.adversarial import common
+    from imitation_tpu_torch.policies import serialize as policy_serialize
+    from imitation_tpu_torch.rewards import serialize as reward_serialize
+
+    phase = "cli_gail_cartpole"
+    log(phase, "cut: total_timesteps 32,768 instead of gail_cartpole.json's 500,000 (4 rounds); widths as tuned")
+    trainers, ends = [], []
+    train = common.AdversarialTrainer.train
+
+    def timed_train(self, total_timesteps, callback=None):
+        trainers.append(self)
+
+        def round_end(r):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if callback is not None:
+                callback(r)
+
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return train(self, total_timesteps, callback=round_end)
+
+    common.AdversarialTrainer.train = timed_train
+    try:
+        zero_counts()
+        result, run_dir = cli_run(torch, phase, "train_adversarial",
+                                  ["gail", "with", "gail_cartpole", "total_timesteps=32768"], root)
+        launches = counts()
+    finally:
+        common.AdversarialTrainer.train = train
+    (trainer,) = trainers
+    ppo = trainer.gen_algo.config
+    got = (trainer.venv.num_envs, ppo.n_steps, ppo.n_minibatches, ppo.n_epochs, ppo.learning_rate, ppo.ent_coef,
+           trainer.demo_batch_size, trainer.n_disc_updates_per_round, trainer.device.type)
+    if got != (64, 128, 64, 5, 1e-3, 0.01, 1024, 4, torch.device(dev).type):
+        raise AssertionError(f"{phase}: not gail_cartpole's widths on the card: {got}")
+    per_round = [b - a for a, b in zip(ends, ends[1:])]
+    log(phase, f"{len(per_round)} rounds of 64 envs x 128 steps: {', '.join(f'{x:.3f}' for x in per_round)} "
+               f"s per round; launches {launches}")
+    want = {"gae": 4, "assemble_rows": 16}
+    if launches != want:  # B1 once per round, B2 once per disc step
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    stats = result["imit_stats"]
+    finite_stats(phase, stats)
+    log(phase, f"imit_stats/return_mean {stats['return_mean']:.6g} ({stats_line(stats)})")
+
+    ckpt = os.path.join(run_dir, "checkpoints", "final")
+    policy = policy_serialize.load_policy_from_path(os.path.join(ckpt, "gen_policy"))
+    net = reward_serialize.load_reward_net(os.path.join(ckpt, "reward_test"))
+    data = trainer._gen_buffer_state.data
+    batch = [x[:4096] for x in (data.obs, data.acts, data.next_obs, data.dones)]
+    with torch.no_grad():
+        dist, value = policy.dist_and_value(batch[0])
+        want_dist, want_value = trainer.policy.dist_and_value(batch[0])
+        errs = dict(log_prob=(dist.log_prob(batch[1]) - want_dist.log_prob(batch[1])).abs().max().item(),
+                    value=(value - want_value).abs().max().item(),
+                    reward=(net(*batch) - trainer.reward_net(*batch)).abs().max().item())
+    log(phase, f"checkpoints/final reloaded on {next(policy.parameters()).device} against the trainer on "
+               f"{batch[0].shape[0]} replay rows: max abs diff " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"{phase}: the reloaded checkpoint disagrees with the trainer: {errs}")
+    return {phase: launches}
+
+
+def run_cli_airl_pendulum(torch, dev, root):
+    """``train_adversarial airl with env_name=Pendulum-v1
+    total_timesteps=4096`` (2 rounds at the CLI defaults, 8 envs x 256
+    steps), then ``train_rl`` on its unshaped ``reward_test`` (the reward
+    transfer of tests/scripts/test_scripts.py): B1 at [256, 8] once per
+    round and per PPO iteration."""
+    import numpy as np
+
+    from imitation_tpu_torch.rewards import serialize as reward_serialize
+
+    phase = "cli_airl_pendulum"
+    log(phase, "cut: total_timesteps 4,096 instead of the CLI default 100,000 (2 rounds), and 4,096 for "
+               "train_rl (2 PPO iterations)")
+    zero_counts()
+    result, run_dir = cli_run(torch, phase, "train_adversarial",
+                              ["airl", "with", "env_name=Pendulum-v1", "total_timesteps=4096"], root)
+    airl = counts()
+    finite_stats(phase, result["imit_stats"])
+    log(phase, f"airl: launches {airl}; imit_stats {stats_line(result['imit_stats'])}")
+    if airl != {"gae": 2, "assemble_rows": 8}:
+        raise AssertionError(f"{phase}: AIRL launches {airl}, expected 2 GAE and 8 B2")
+
+    reward_path = os.path.join(run_dir, "checkpoints", "final", "reward_test")
+    zero_counts()
+    result, rl_dir = cli_run(torch, phase, "train_rl", [
+        "with", "pendulum", "reward_type=RewardNet_unshaped", f"reward_path={reward_path}",
+        "total_timesteps=4096"], root)
+    rl = counts()
+    finite_stats(phase, result)
+    log(phase, f"train_rl on the AIRL reward: launches {rl}; eval {stats_line(result)}")
+    if rl != {"gae": 2, "assemble_rows": 0}:
+        raise AssertionError(f"{phase}: train_rl launches {rl}, expected 2 GAE")
+    rng = np.random.default_rng(0)
+    obs, next_obs = (rng.normal(size=(4096, 3)).astype(np.float32) for _ in range(2))
+    acts = rng.uniform(-2, 2, (4096, 1)).astype(np.float32)
+    dones = np.zeros(4096, np.float32)
+    fns = [reward_serialize.load_reward("RewardNet_unshaped", reward_path, device=d) for d in (dev, "cpu")]
+    got, want = (fn(obs, acts, next_obs, dones) for fn in fns)
+    err = float(np.abs(got - want).max())
+    log(phase, f"the transferred reward on the card against the CPU on 4096 rows: max abs diff {err:.3g}")
+    if err > 1e-4:
+        raise AssertionError(f"{phase}: the transferred reward disagrees between card and CPU")
+    return {phase: airl, "cli_rl_pendulum": rl}
+
+
+def run_cli_imitation_cartpole(torch, dev, root):
+    """``train_imitation bc|dagger|sqil`` at the tuned CartPole configs (cut
+    in depth), then ``eval_policy`` of the BC policy, plain and with
+    ``explore_kwargs``. Neither kernel is on these paths."""
+    phase = "cli_imitation_cartpole"
+    log(phase, "cut: bc.n_epochs 2 instead of 15; dagger.total_timesteps 2,000 instead of 20,000; "
+               "sqil.total_timesteps 5,000 instead of 50,000")
+    zero_counts()
+    returns = {}
+    result, bc_dir = cli_run(torch, phase, "train_imitation", ["bc", "with", "bc_cartpole", "bc.n_epochs=2"], root)
+    returns["bc"] = result["imit_stats"]
+    result, _ = cli_run(torch, phase, "train_imitation",
+                        ["dagger", "with", "dagger_cartpole", "dagger.total_timesteps=2000"], root)
+    returns["dagger"] = result["imit_stats"]
+    result, _ = cli_run(torch, phase, "train_imitation",
+                        ["sqil", "with", "sqil_cartpole", "sqil.total_timesteps=5000"], root)
+    returns["sqil"] = result["imit_stats"]
+    saved = ["with", "expert.policy_type=saved",
+             f"expert.loader_kwargs.path={os.path.join(bc_dir, 'policies', 'final')}"]
+    returns["eval_policy"], _ = cli_run(torch, phase, "eval_policy", saved, root)
+    returns["eval_policy explore"], _ = cli_run(
+        torch, phase, "eval_policy", saved + ["explore_kwargs={'random_prob': 0.5, 'switch_prob': 0.5}"], root)
+    for name, stats in returns.items():
+        finite_stats(phase, stats)
+        log(phase, f"{name}: {stats_line(stats)}")
+    launches = counts()
+    log(phase, f"kernel launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: BC, DAgger, SQIL and evaluation launch neither kernel: {launches}")
+
+
+def run_cli_preference_pendulum(torch, dev, root):
+    """``train_preference_comparisons with active env_name=Pendulum-v1``,
+    cut as rlhf_active_pendulum: B1 at [128, 8] once per PPO iteration
+    (2 a training of the agent, 3 trainings)."""
+    phase = "cli_preference_pendulum"
+    log(phase, "cut: num_iterations 2 instead of 10; total_timesteps 4,096 instead of 20,000; "
+               "total_comparisons 80 instead of 400")
+    zero_counts()
+    result, run_dir = cli_run(torch, phase, "train_preference_comparisons", [
+        "with", "active", "env_name=Pendulum-v1", "num_iterations=2", "total_timesteps=4096",
+        "total_comparisons=80"], root)
+    launches = counts()
+    finite_stats(phase, result["rollout"])
+    log(phase, f"launches {launches}; reward_loss {result['reward_loss']:.4g}, reward_accuracy "
+               f"{result['reward_accuracy']:.4g}; rollout {stats_line(result['rollout'])}")
+    if not (math.isfinite(result["reward_loss"]) and math.isfinite(result["reward_accuracy"])):
+        raise AssertionError(f"{phase}: non-finite reward metrics {result}")
+    want = {"gae": 3 * 2, "assemble_rows": 0}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    return {phase: launches}
+
+
+def run_cli_main(torch, root):
+    """``python -m imitation_tpu_torch train_imitation bc with fast`` in a
+    subprocess from the checkout: exit 0, run.json COMPLETED; the kernel
+    library in ``_build/`` is left as it is (BC loads none of it)."""
+    from imitation_tpu_torch.ops import kernels
+
+    phase = "cli_main"
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = kernels.library_path().parent
+
+    def build_files():
+        return {f: os.stat(os.path.join(build, f)).st_mtime_ns for f in os.listdir(build)}
+
+    before = build_files()
+    log_root = os.path.join(root, phase)
+    cmd = [sys.executable, "-m", "imitation_tpu_torch", "train_imitation", "bc", "with", "fast",
+           f"log_root={log_root}"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{phase}: exit {out.returncode}: {out.stderr[-2000:]}")
+    (env_dir,) = os.listdir(log_root)
+    run_dir = os.path.realpath(os.path.join(log_root, env_dir, "latest"))
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run = json.load(f)
+    if run["status"] != "COMPLETED" or build_files() != before:
+        raise AssertionError(f"{phase}: {run['status']}; _build changed: {before} -> {build_files()}")
+    in_run = (datetime.datetime.fromisoformat(run["stop_time"])
+              - datetime.datetime.fromisoformat(run["start_time"])).total_seconds()
+    log(phase, f"{' '.join(cmd[1:-1])}: exit 0 in {seconds:.2f} s, {in_run:.2f} s of it between run.json's "
+               f"start and stop (the rest: interpreter, imports, CUDA context); run.json "
+               f"COMPLETED, imit_stats return_mean {run['result']['imit_stats']['return_mean']:.6g}; "
+               f"_build/ unchanged ({', '.join(sorted(before))}); files {', '.join(run_files(run_dir))}")
+
+
 def main() -> int:
     import torch
 
@@ -2637,6 +2930,20 @@ def main() -> int:
         fn()
         log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
     log("seals", f"the seals and dict-observation phases took {time.perf_counter() - t_seals:.2f} s")
+
+    # The CLI: each command through ``ex.run_cli`` as ``python -m
+    # imitation_tpu_torch`` runs it, on the default device (CUDA).
+    t_cli = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="itt_cli_") as root:
+        for phase, fn in (("cli_gail_cartpole", lambda: run_cli_gail_cartpole(torch, dev, root)),
+                          ("cli_airl_pendulum", lambda: run_cli_airl_pendulum(torch, dev, root)),
+                          ("cli_imitation_cartpole", lambda: run_cli_imitation_cartpole(torch, dev, root)),
+                          ("cli_preference_pendulum", lambda: run_cli_preference_pendulum(torch, dev, root)),
+                          ("cli_main", lambda: run_cli_main(torch, root))):
+            t0 = time.perf_counter()
+            paths.update(fn() or {})
+            log(phase, f"done in {time.perf_counter() - t0:.2f} s")
+    log("cli", f"the CLI phases took {time.perf_counter() - t_cli:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}
