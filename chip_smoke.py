@@ -18,7 +18,8 @@ Phases, each timed and printed on its own line:
    B2 disc-batch assembly exactly: a GAIL
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
    the latter also at the CLI defaults' sizes, and GAIL at gail_cartpole's
-   (demo 5,000 rows, replay 8,192, B = 1024), each four fields in one
+   (demo 5,000 rows, replay 8,192, B = 1024) and over host Pendulum (demo
+   12,800 rows, replay 512, B = 8192: the host GAIL phase's), each four fields in one
    launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
    1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
    bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
@@ -29,7 +30,7 @@ Phases, each timed and printed on its own line:
    [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
    [128, 8], density's [64, 16], the pixel tutorial's [32, 8] and
    gail_cartpole's [128, 64], B2 per disc step (the CLI defaults',
-   gail_cartpole's and both image-row shapes included). ``device_ms`` is the kernel's own device
+   gail_cartpole's, the host GAIL's and both image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -70,7 +71,8 @@ Phases, each timed and printed on its own line:
 13. sac_pendulum: ``SAC.learn`` on 16 device Pendulum-v1 envs at the
    expert-training settings (train_freq 16, 256 gradient steps of batch 256
    a round, (256, 256) actor and critics, lr 3e-4), ``learning_starts`` cut
-   to 2,560: 10 rounds with masked updates, then 6 learning rounds under the
+   to 2,560: 10 rounds with masked updates, then 3 learning rounds (6 until
+   PR 13; cut in PR 14 to make room for the host phases) under the
    CUDA sync debug mode (asserted: no host read); s/round, updates/s, the
    actor's forward on the card against the CPU on 4096 replay rows, and one
    profiled round split by ``sac.collect``, ``sac.buffer_store`` and
@@ -78,7 +80,8 @@ Phases, each timed and printed on its own line:
 14. sqil_cartpole: ``SQIL.train`` (DQN) on 8 device CartPole-v1 envs at
    benchmarking/run_small_algos.py:52-67 (train_freq 4, batch 64, 4
    gradient steps, lr 1e-4, target copy every 2000 steps, exploration 0.3
-   -> 0.05) on 10 scripted episodes, 20,000 steps (cut from 300,000).
+   -> 0.05) on 10 scripted episodes, 10,000 steps (cut from 300,000; 20,000
+   until PR 13).
 15. sqil_pendulum: ``SQIL.train`` (SAC) on 8 device Pendulum-v1 envs at the
    ``train_imitation sqil`` defaults (learning_starts 500, batch 64, lr
    3e-4) on 10 scripted episodes, 3,000 steps (cut from 10,000).
@@ -94,8 +97,9 @@ Phases, each timed and printed on its own line:
    32 minibatches x 10 epochs, a (32, 32) actor-critic with
    normalize_features, ``BasicRewardNet(normalize_input=True)``, fragments
    of 100 steps, initial_epoch_multiplier 200, exploration_frac 0.05,
-   transition_oversampling 1.5), cut to 3 iterations, 12,288 timesteps and
-   90 comparisons (each cut printed): B1 at [64, 32].
+   transition_oversampling 1.5), cut to 2 iterations, 8,192 timesteps and
+   60 comparisons (each cut printed; 3, 12,288 and 90 until PR 13): B1 at
+   [64, 32].
 18. rlhf_active_pendulum: ``train_preference_comparisons with active``
    (8 envs, PPO n_steps 128, 16 minibatches x 4 epochs, lr 3e-4, a
    ``RewardEnsemble`` of 3 ``BasicRewardNet``s with member ``RunningNorm``,
@@ -121,7 +125,8 @@ Phases, each timed and printed on its own line:
 22. density_pendulum: run_small_algos.py's density run at its widths (16
    envs, the scripted expert's 20+ episodes, STATE_ACTION_DENSITY,
    bandwidth 0.5; PPO n_steps 64, 8 minibatches x 10 epochs, lr 3e-4,
-   gamma 0.95), cut to 16,384 timesteps (16 PPO iterations): the KDE
+   gamma 0.95), cut to 8,192 timesteps (8 PPO iterations; 16 until PR 13,
+   cut in PR 14 to make room for the host phases): the KDE
    reward on the card against a CPU copy for each density type and for
    non-stationary density, expert above random transitions, B1 launched
    once per iteration at [64, 16], s per iteration, one profiled
@@ -213,6 +218,41 @@ Phases, each timed and printed on its own line:
 35. cli_main: ``python -m imitation_tpu_torch train_imitation bc with fast``
    in a subprocess from the checkout: exit 0, run.json COMPLETED, the
    kernel library in ``_build/`` untouched.
+36. host_envs: the C++ host env engine (``imitation_tpu_torch/native``):
+   its ``g++`` build at first use, timed; one step of each engine env type
+   (CartPole, Pendulum, MountainCar, MountainCarContinuous) against
+   ``envs/classic.py`` on the CPU from the same states at 64 envs, 50 steps,
+   within 1e-6; env steps per second at 64 Pendulum envs on the engine's
+   default threads (``min(8, cpu_count)``) and on one.
+37. gail_host_pendulum: GAIL at bench.py:106-180's main-path learner
+   configuration with benchmarking/run_parity.py:57's ("gail",
+   "seals_half_cheetah") HPs over 64 host ``CppVectorEnv("Pendulum-v1")``
+   envs (the physics swapped for Pendulum): a (32, 32) actor-critic with
+   normalize_features, ``BasicRewardNet(normalize_input=True)``, PPO n_steps
+   64, 64 minibatches x 5 epochs, lr 2.63e-4, clip 0.1, ent 3.99e-6,
+   lambda 0.95, gamma 0.95, max_grad_norm 0.8, vf 0.115; demo batch 8192,
+   replay 512 rows, 8 disc updates; 64 scripted episodes (12,800 rows)
+   made through ``generate_trajectories_host``. As bench.py:187-196,
+   serialized and overlapped (``overlap_collection``) alternately on two
+   fresh trainers each: a warm-up round, 2 timed rounds (B1 once at
+   [64, 64] and B2 8 times a round, asserted), and on the second pair 2
+   rounds under the generator's ``PhaseTimer`` (host_collect and
+   device_update serialized, collect_join overlapped, disc_update both); s/round, the overlap
+   speedup, the thread counts; parameters, buffers and every chunk field
+   on cuda (asserted).
+38. sac_host_pendulum: SAC on 16 host Pendulum envs (train_freq 16, batch
+   256, (256, 256) nets, 16 gradient steps a round), 6 rounds serialized,
+   then overlapped.
+39. sqil_host_cartpole: SQIL (DQN) on 8 host CartPole envs with overlapped
+   collection at sqil_cartpole's settings, 4,000 steps, demos made on host
+   envs; the mixed batch half 0 then half 1.
+40. dagger_host_cartpole: dagger_cartpole's run on 16 host CartPole envs
+   with a 100-step horizon, 1,000 timesteps (one round, then the rebuilt
+   trainer's; BC's evaluations roll out on the host env too).
+41. rlhf_host_pendulum: ``PreferenceComparisons.train`` over 16 host
+   Pendulum envs with ``exploration_frac`` 0.25 (the exploration wrapper's
+   ``host_policy_fn``), 2 iterations, 4,096 timesteps, 60 comparisons: B1
+   at [64, 16] once per PPO iteration. No kernel on phases 38-40.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -251,7 +291,7 @@ airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
 bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
-cli_preference_pendulum) is driven with the kernels' launch counts set to 0 just
+cli_preference_pendulum, gail_host_pendulum, rlhf_host_pendulum) is driven with the kernels' launch counts set to 0 just
 before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
@@ -505,6 +545,10 @@ def check_kernels(torch, dev):
     # train_adversarial gail with gail_cartpole: 10 scripted episodes of 500
     # rows, a replay ring of 64 envs x 128 steps, demo batch 1024.
     gail_cli = check_fused("GAIL disc step at gail_cartpole", 5000, 8192, 1024, gail_kinds)
+    # GAIL at bench.py's main-path learner config over 64 host Pendulum-v1
+    # envs: 64 scripted episodes of 200 rows, a replay ring of 512 rows, demo
+    # batch 8192 (the AIRL Pendulum fields).
+    host_gail = check_fused("GAIL disc step over host Pendulum", 12800, 512, 8192, airl_kinds)
     for name, kinds, n, c, b, spread in (
         ("edge-1row", (((1,), f32, 0),), 5, 5, 1, 0),
         ("edge-out-of-range", (((3,), f32, 0),), 12, 9, 40, 30),
@@ -528,6 +572,7 @@ def check_kernels(torch, dev):
                        *byte, Bd)
     airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
     gail_cli_row = time_b2(torch, "kernels", "GAIL disc step at gail_cartpole (4 fields)", *gail_cli, 1024)
+    host_row = time_b2(torch, "kernels", "GAIL disc step over host Pendulum (4 fields)", *host_gail, 8192)
     pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
     car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
                       *car, 1024)
@@ -548,6 +593,8 @@ def check_kernels(torch, dev):
         byte_path=dict(byte_row, shape="uint8 [., 2, 2], bool [.], f16 [., 3], f32 [., 2, 2]"),
         airl_cli=dict(airl_cli_row, shape="demo [2000], replay [2048], B=1024, the AIRL fields"),
         gail_cartpole=dict(gail_cli_row, shape="demo [5000], replay [8192], B=1024, the GAIL fields"),
+        gail_host_pendulum=dict(host_row, shape="demo [12800], replay [512], B=8192; obs/next_obs [., 3] f32, "
+                                                "acts [., 1] f32, dones [.] f32"),
         pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
                                               f"[., 16, 16, 1] f32, acts [.] int32, dones [.] f32"),
         carracing_rows=dict(car_row, main_path=False,
@@ -1069,8 +1116,9 @@ def run_bc(torch, dev, env_name, phase, demo_kw, bc_kw, epochs, accumulate=None)
         check_learned(phase, before, demo_metrics(torch, acc))
 
 
-def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps):
-    """``SimpleDAggerTrainer.train`` on 16 device envs with the scripted
+def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=False, **venv_kw):
+    """``SimpleDAggerTrainer.train`` on 16 device envs (with ``host``, 16
+    host envs of the C++ engine, made with ``venv_kw``) with the scripted
     expert, then ``save_trainer``, ``reconstruct_trainer`` and one more
     round of the rebuilt trainer."""
     import tempfile
@@ -1079,9 +1127,13 @@ def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps):
     from imitation_tpu_torch.algorithms.bc import BC
     from imitation_tpu_torch.envs import make_vec_env
     from imitation_tpu_torch.models.policies import FeedForward32Policy
+    from imitation_tpu_torch.native import CppVectorEnv
     from imitation_tpu_torch.testing import experts
 
-    venv = make_vec_env(env_name, num_envs=16, device=dev)
+    if host:
+        venv = CppVectorEnv(env_name, num_envs=16, seed=0, device=dev, **venv_kw)
+    else:
+        venv = make_vec_env(env_name, num_envs=16, device=dev)
     eval_venv = make_vec_env(env_name, num_envs=64, device=dev)
     space = venv.observation_space, venv.action_space
     expert = experts.expert_for(env_name)
@@ -1248,14 +1300,14 @@ def finite_metrics(torch, phase, metrics, keys):
     return host
 
 
-def run_sac(torch, dev, num_envs=16, masked_rounds=10, rounds=6):
+def run_sac(torch, dev, num_envs=16, masked_rounds=10, rounds=3):
     """``SAC.learn`` on device Pendulum-v1 at the expert-training settings
     (benchmarking/train_experts.py:200-212, the PEBBLE generator of
     benchmarking/run_rlhf.py:69): 16 envs, train_freq 16, 256 gradient steps
     of batch 256 a round, (256, 256) actor and critics, lr 3e-4;
     ``learning_starts`` cut from 10,000 to 2,560, so ``masked_rounds``
     rounds store 2,560 rows with masked updates before ``rounds`` rounds
-    learn (4,096 rows in all). The learning rounds run with the CUDA sync debug mode on and
+    learn (3,328 rows in all). The learning rounds run with the CUDA sync debug mode on and
     must make no host read (nothing is logged)."""
     from imitation_tpu_torch.envs import make_vec_env
     from imitation_tpu_torch.rl.sac import SAC, SACConfig
@@ -1461,7 +1513,7 @@ def rlhf_pendulum(dev):
     net = BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=True)
     agent = pc.AgentTrainer(ppo, net, venv, rng=0, exploration_frac=0.05)
     return pc.PreferenceComparisons(
-        agent, net, num_iterations=3, fragmenter=pc.RandomFragmenter(rng=0, warning_threshold=0),
+        agent, net, num_iterations=2, fragmenter=pc.RandomFragmenter(rng=0, warning_threshold=0),
         preference_gatherer=pc.SyntheticGatherer(rng=np.random.default_rng(0)), fragment_length=100,
         transition_oversampling=1.5, initial_comparison_frac=0.1, initial_epoch_multiplier=200.0,
         allow_variable_horizon=True, rng=0, seed=0, custom_logger=make_logger())
@@ -1999,11 +2051,11 @@ def kde_cpu_check(torch, phase, demos, venv, cfg):
             raise AssertionError(f"{phase}: the card's KDE reward disagrees with the CPU's ({kind})")
 
 
-def run_density(torch, dev, num_envs=16, timesteps=16_384):
+def run_density(torch, dev, num_envs=16, timesteps=8_192):
     """benchmarking/run_small_algos.py:79-105 at its widths: 16 envs, the
     scripted expert's episodes (``min_episodes=20``), STATE_ACTION_DENSITY,
     bandwidth 0.5, standardised, stationary; PPO n_steps 64, 8 minibatches x
-    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 16,384 timesteps."""
+    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 8,192 timesteps."""
     import numpy as np
 
     from imitation_tpu_torch.algorithms import density
@@ -2768,6 +2820,334 @@ def run_cli_main(torch, root):
                f"_build/ unchanged ({', '.join(sorted(before))}); files {', '.join(run_files(run_dir))}")
 
 
+# -- the host-env path ---------------------------------------------------------
+
+# bench.py:106-180's main-path GAIL learner at benchmarking/run_parity.py:57's
+# ("gail", "seals_half_cheetah") HPs: (demo batch, replay capacity, disc
+# updates, rl batch, minibatch, clip, ent, lambda, gamma, lr, max_grad_norm,
+# epochs, vf).
+HOST_GAIL_HPS = (8192, 512, 8, 4096, 64, 0.1, 3.99e-6, 0.95, 0.95, 2.63e-4, 0.8, 5, 0.115)
+
+
+def thread_counts(torch, venv=None) -> str:
+    engine = f"engine threads {venv.num_threads}, " if venv is not None else ""
+    return f"{engine}torch intra-op threads {torch.get_num_threads()}, os.cpu_count() {os.cpu_count()}"
+
+
+def run_host_envs(torch, dev, n=64, steps=2000):
+    """The C++ host env engine: its ``g++`` build at first use; one step of
+    each engine env type against ``envs/classic.py`` on the CPU from the
+    same states (50 steps of random actions, 64 envs; Pendulum's state is
+    atan2(sin, cos) and theta_dot), within 1e-6; env steps per second at
+    ``n`` envs under random actions, on the engine's default threads and on
+    one."""
+    import numpy as np
+
+    from imitation_tpu_torch.envs import classic
+    from imitation_tpu_torch.native import ENV_TYPES, CppVectorEnv, build
+
+    t0 = time.perf_counter()
+    build.load_library()
+    build_s = time.perf_counter() - t0
+    log("host_envs", f"g++ build + load {build_s:.2f} s -> {build.library_path().name}")
+    classes = (classic.CartPole, classic.Pendulum, classic.MountainCar, classic.MountainCarContinuous)
+    rng = np.random.default_rng(0)
+
+    def actions(space, k):
+        if space.is_discrete:
+            return rng.integers(0, space.n, k)
+        return rng.uniform(-1.2 * space.high, 1.2 * space.high, (k,) + space.shape).astype(np.float32)
+
+    for name in ("CartPole-v1", "Pendulum-v1", "MountainCar-v0", "MountainCarContinuous-v0"):
+        env_type, fixed = ENV_TYPES[name]
+        venv = CppVectorEnv(name, num_envs=n, seed=3, device=dev)
+        env = classes[env_type](fixed_horizon=fixed)
+        obs, worst, ends = venv.reset(), 0.0, 0
+        for _ in range(50):
+            acts = actions(venv.action_space, n)
+            state = np.stack([np.arctan2(obs[:, 1], obs[:, 0]), obs[:, 2]], -1) if env_type == 1 else obs
+            a = torch.from_numpy(acts if acts.dtype == np.float32 else acts.astype(np.int32))
+            _, ts = env.step(torch.from_numpy(state.astype(np.float32)), a)
+            out = venv.step(acts)
+            worst = max(worst, float(np.abs(ts.obs.numpy() - out["terminal_obs"]).max()),
+                        float(np.abs(ts.reward.numpy() - out["reward"]).max()))
+            if not (np.allclose(ts.obs.numpy(), out["terminal_obs"], rtol=1e-6, atol=1e-6)
+                    and np.allclose(ts.reward.numpy(), out["reward"], rtol=1e-6, atol=1e-6)
+                    and np.array_equal(ts.terminated.numpy(), out["terminated"])):
+                raise AssertionError(f"host_envs: {name}: the engine's step disagrees with envs/classic.py")
+            ends += int((out["terminated"] | out["truncated"]).sum())
+            obs = out["obs"]
+        log("host_envs", f"{name} x{n}: engine step vs envs/classic.py on the CPU, 50 steps: "
+                         f"max abs diff {worst:.3g} (allclose 1e-6), {ends} episode ends")
+        venv.close()
+    rates = {}
+    for threads in (None, 1):
+        venv = CppVectorEnv("Pendulum-v1", num_envs=n, seed=0, num_threads=threads, device=dev)
+        venv.reset()
+        acts = rng.uniform(-2, 2, (steps, n, 1)).astype(np.float32)
+        t0 = time.perf_counter()
+        for a in acts:
+            venv.step(a)
+        secs = time.perf_counter() - t0
+        rates[venv.num_threads] = n * steps / secs
+        log("host_envs", f"Pendulum-v1 x{n}: {steps} steps in {secs:.3f} s = {n * steps / secs:.0f} env "
+                         f"steps/s ({1e3 * secs / steps:.4f} ms a step call; {thread_counts(torch, venv)})")
+        venv.close()
+    return build_s, rates
+
+
+def host_gail(torch, dev, demos, overlap, num_envs=64):
+    """A GAIL trainer at ``HOST_GAIL_HPS`` over ``num_envs`` host
+    Pendulum-v1 envs (200-step horizon), a (32, 32) ``ActorCriticPolicy``
+    with ``normalize_features`` and ``BasicRewardNet(normalize_input=True)``.
+    Its generator's ``process_chunk`` records each chunk's field devices."""
+    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+    from imitation_tpu_torch.data.rollout import CHUNK_FIELDS
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.native import CppVectorEnv
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+
+    demo_bs, replay, n_disc, rl_batch, mb, clip, ent, lam, gamma, lr, mgn, epochs, vf = HOST_GAIL_HPS
+    venv = CppVectorEnv("Pendulum-v1", num_envs=num_envs, seed=0, device=dev)
+    obs_space, act_space = venv.observation_space, venv.action_space
+    trainer = GAIL(
+        demonstrations=demos, demo_batch_size=demo_bs, venv=venv,
+        policy=ActorCriticPolicy(obs_space, act_space, hid_sizes=(32, 32), normalize_features=True),
+        reward_net=BasicRewardNet(obs_space, act_space, normalize_input=True),
+        gen_config=PPOConfig(n_steps=rl_batch // num_envs, n_minibatches=rl_batch // mb, n_epochs=epochs,
+                             learning_rate=lr, gamma=gamma, gae_lambda=lam, clip_range=clip, ent_coef=ent,
+                             vf_coef=vf, max_grad_norm=mgn, overlap_collection=overlap),
+        n_disc_updates_per_round=n_disc, gen_replay_buffer_capacity=replay,
+        custom_logger=make_logger(), seed=0)
+    gen = trainer.gen_algo
+    process = gen.process_chunk
+    trainer.chunk_devices = set()
+
+    def recording(state, env_state, chunk, generator, reward_params=None):
+        trainer.chunk_devices.update(getattr(chunk, f).device.type for f in CHUNK_FIELDS)
+        trainer.chunk_devices.update(v.device.type for v in chunk.aux.values())
+        trainer.chunk_shape = tuple(chunk.acts.shape[:2])
+        return process(state, env_state, chunk, generator, reward_params)
+
+    gen.process_chunk = recording
+    return trainer
+
+
+def close_host_trainer(trainer) -> None:
+    """Joins and stops the generator's collection thread and closes the engine."""
+    gen = trainer.gen_algo
+    gen.discard_pending_collection()
+    if gen._collect_pool is not None:
+        gen._collect_pool.shutdown(wait=True)
+        gen._collect_pool = None
+    trainer.venv.close()
+
+
+def run_gail_host_pendulum(torch, dev, reps=2, rounds=2):
+    """GAIL at bench.py's main-path learner configuration over 64 host
+    Pendulum-v1 envs, serialized and overlapped, each on ``reps`` fresh
+    trainers alternately (bench.py:187-196): a warm-up round, ``rounds``
+    timed rounds of ``train`` with the launch counts set to 0 just before
+    and read just after (B1 once and B2 8 times a round, asserted), then, on
+    the last pair of trainers, ``rounds`` more under the generator's
+    ``PhaseTimer`` (an overlapped ``train`` call collects its first chunk in
+    the foreground and joins the rest). Parameters, buffers and every chunk
+    field on CUDA (asserted); the reward on the card against a CPU copy."""
+    from imitation_tpu_torch.data import rollout
+    from imitation_tpu_torch.native import CppVectorEnv
+    from imitation_tpu_torch.testing import experts
+    from imitation_tpu_torch.util.profiling import PhaseTimer
+
+    phase = "gail_host_pendulum"
+    t0 = time.perf_counter()
+    demo_venv = CppVectorEnv("Pendulum-v1", num_envs=64, seed=1, device=dev)
+    demos = rollout.generate_trajectories(experts.pendulum_expert_fn, demo_venv,
+                                          rollout.make_min_episodes(64), rng=0)[:64]
+    stats = rollout.rollout_stats(demos)
+    rows = sum(len(d) for d in demos)
+    log(phase, f"expert demos through generate_trajectories_host: {len(demos)} episodes, {rows} rows, "
+               f"return mean {stats['return_mean']:.6g} (min {stats['return_min']:.6g}) "
+               f"in {time.perf_counter() - t0:.2f} s")
+    if rows != 12_800:
+        raise AssertionError(f"{phase}: {rows} demo rows, expected 64 episodes of 200")
+    demo_venv.close()
+    n_disc = HOST_GAIL_HPS[2]
+    results = {False: [], True: []}
+    launches = None
+    for rep in range(reps):
+        for overlap in (False, True):
+            mode = "overlapped" if overlap else "serialized"
+            trainer = host_gail(torch, dev, demos, overlap)
+            try:
+                t0 = time.perf_counter()
+                trainer.train(trainer.gen_train_timesteps)
+                torch.cuda.synchronize()
+                warm = time.perf_counter() - t0
+                ends = []
+                zero_counts()
+                t0 = time.perf_counter()
+                trainer.train(rounds * trainer.gen_train_timesteps, callback=lambda r: ends.append(time.perf_counter()))
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                got = counts()
+                want = {"gae": rounds, "assemble_rows": n_disc * rounds}
+                if got != want:
+                    raise AssertionError(f"{phase}: {mode} launches {got}, expected {want}")
+                launches = got
+                per = [ends[0] - t0] + [b - a for a, b in zip(ends, ends[1:])]
+                split_msg = ""
+                if rep == reps - 1:
+                    timer = PhaseTimer()
+                    trainer.gen_algo.phase_timer = timer
+                    t1 = time.perf_counter()
+                    trainer.train(rounds * trainer.gen_train_timesteps)
+                    torch.cuda.synchronize()
+                    split = {k[5:-2]: v for k, v in timer.report().items() if not k.endswith("_mean_s")}
+                    split_msg = (f"; {rounds} more under the PhaseTimer in {time.perf_counter() - t1:.3f} s: "
+                                 + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(split.items())))
+                results[overlap].append(elapsed / rounds)
+                log(phase, f"{mode} (rep {rep}): warm-up {warm:.3f} s; {rounds} rounds in {elapsed:.3f} s = "
+                           f"{', '.join(f'{x:.3f}' for x in per)} s ({trainer.gen_train_timesteps} env steps "
+                           f"each, {trainer.gen_train_timesteps * rounds / elapsed:.0f} env steps/s); "
+                           f"launches {got}{split_msg}; {thread_counts(torch, trainer.venv)}")
+                row = trainer.logger.rows[-1]
+                log(phase, "logged: " + ", ".join(f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
+                    "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/true_rew_mean",
+                    "mean/gen/relabeled_rew_mean", "mean/disc/disc_loss", "mean/disc/disc_acc")))
+                if not all(math.isfinite(row[k]) for k in ("mean/gen/loss", "mean/disc/disc_loss")):
+                    raise AssertionError(f"{phase}: non-finite losses")
+                tensors = (list(trainer.policy.parameters()) + list(trainer.policy.buffers())
+                           + list(trainer.reward_net.parameters()) + list(trainer.reward_net.buffers())
+                           + [getattr(trainer._demo_store.batch, f) for f in ("obs", "acts")])
+                if not all(t.device == dev for t in tensors) or trainer.chunk_devices != {dev.type}:
+                    raise AssertionError(f"{phase}: parameters or chunks off the card: {trainer.chunk_devices}")
+                if trainer.chunk_shape != (64, 64):
+                    raise AssertionError(f"{phase}: chunk {trainer.chunk_shape}, expected [64, 64]")
+                if not all(bool(torch.isfinite(p).all()) for p in trainer.policy.parameters()):
+                    raise AssertionError(f"{phase}: non-finite policy parameters")
+                if rep == reps - 1 and overlap:
+                    reward_cpu_check(torch, phase, trainer)
+            finally:
+                close_host_trainer(trainer)
+    s_ser, s_ovl = min(results[False]), min(results[True])
+    log(phase, f"policy, reward net, demo store and every chunk field (aux included) on cuda; chunk [64, 64]; "
+               f"s/round serialized {', '.join(f'{x:.4f}' for x in results[False])}, overlapped "
+               f"{', '.join(f'{x:.4f}' for x in results[True])}; best {s_ser:.4f} / {s_ovl:.4f}: "
+               f"overlap speedup {s_ser / s_ovl:.4f}x, winner {'overlapped' if s_ovl < s_ser else 'serialized'}")
+    return {phase: launches}, s_ser, s_ovl
+
+
+def run_sac_host(torch, dev, num_envs=16, rounds=6):
+    """SAC on 16 host Pendulum-v1 envs at sac_pendulum's widths (train_freq
+    16, batch 256, (256, 256) nets, lr 3e-4), cut to 16 gradient steps a
+    round and ``learning_starts`` 256: ``rounds`` rounds serialized, then
+    overlapped, after one warm-up round each; the actor and critics on
+    cuda, no kernel launched."""
+    from imitation_tpu_torch.native import CppVectorEnv
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+
+    out = {}
+    for overlap in (False, True):
+        venv = CppVectorEnv("Pendulum-v1", num_envs=num_envs, seed=0, device=dev)
+        sac = SAC(venv, SACConfig(learning_rate=3e-4, batch_size=256, train_freq=16, gradient_steps=16,
+                                  learning_starts=256, overlap_collection=overlap), seed=0)
+        state = sac.learn(sac.init_state(), 16 * num_envs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = sac.learn(state, rounds * 16 * num_envs)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / rounds
+        state, metrics = sac.train_step(state)
+        sac.discard_pending_collection()
+        host = finite_metrics(torch, "sac_host_pendulum", metrics, ("critic_loss", "actor_loss"))
+        on_card = all(p.device == dev for m in (sac.actor, sac.critic, sac.target_critic)
+                      for p in m.parameters()) and state.buffer_state.data.obs.device == dev
+        if not on_card:
+            raise AssertionError("sac_host_pendulum: parameters or replay off the card")
+        out[overlap] = secs
+        log("sac_host_pendulum", f"{'overlapped' if overlap else 'serialized'}: {secs:.4f} s a round "
+                                 f"({16 * num_envs} env steps, 16 updates of batch 256); "
+                                 f"{state.timesteps} env steps, buffer {state.buffer_state.size}; "
+                                 f"critic_loss {host['critic_loss']:.4g}, ep_return_mean "
+                                 f"{host['ep_return_mean']:.4g}; {thread_counts(torch, venv)}")
+        if sac._collect_pool is not None:
+            sac._collect_pool.shutdown(wait=True)
+        venv.close()
+    return out
+
+
+def run_sqil_host(torch, dev, steps=4_000, n_demos=10):
+    """SQIL (DQN) on 8 host CartPole-v1 envs with ``overlap_collection`` at
+    sqil_cartpole's settings (benchmarking/run_small_algos.py:52-67),
+    4,000 of its 300,000 steps, on 10 scripted episodes made on host envs:
+    steps and updates per second, the mixed batch half 0 then half 1."""
+    from imitation_tpu_torch.algorithms.sqil import SQIL
+    from imitation_tpu_torch.data import rollout
+    from imitation_tpu_torch.native import CppVectorEnv
+    from imitation_tpu_torch.rl.dqn import DQNConfig
+    from imitation_tpu_torch.testing import experts
+
+    phase = "sqil_host_cartpole"
+    demo_venv = CppVectorEnv("CartPole-v1", num_envs=8, seed=1, device=dev)
+    demos = rollout.generate_trajectories(experts.cartpole_expert_fn, demo_venv,
+                                          rollout.make_min_episodes(n_demos), rng=0)[:n_demos]
+    venv = CppVectorEnv("CartPole-v1", num_envs=8, seed=0, device=dev)
+    cfg = DQNConfig(learning_starts=500, train_freq=4, batch_size=64, gradient_steps=4, learning_rate=1e-4,
+                    target_update_interval=2000, exploration_fraction=0.3, exploration_final_eps=0.05,
+                    overlap_collection=True)
+    sqil = SQIL(venv=venv, demonstrations=demos, dqn_config=cfg, allow_variable_horizon=True,
+                custom_logger=make_logger(), seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sqil.train(total_timesteps=steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = sqil.state
+    if sqil.rl._pending_chunk is not None or st.timesteps < steps:
+        raise AssertionError(f"{phase}: {st.timesteps} steps, pending collection {sqil.rl._pending_chunk}")
+    size, half = cfg.batch_size, cfg.batch_size // 2
+    rews = sqil.sample_hook(sqil.rl.replay, st.buffer_state, torch.Generator(device=dev).manual_seed(3),
+                            size).rews.cpu()
+    if not ((rews[:half] == 0).all() and (rews[half:] == 1).all()):
+        raise AssertionError(f"{phase}: the sampled batch is not half fresh zeros then half expert ones")
+    if not all(bool(torch.isfinite(p).all()) and p.device == dev for p in sqil.rl.q_net.parameters()):
+        raise AssertionError(f"{phase}: non-finite or off-card Q-network")
+    log(phase, f"SQIL (DQN, overlapped host collection) {st.timesteps} env steps, {st.n_updates} updates in "
+               f"{secs:.3f} s: {st.timesteps / secs:.1f} steps/s, {st.n_updates / secs:.1f} updates/s; "
+               f"{sum(len(d) for d in demos)} expert rows; batch half 0 then half 1; {thread_counts(torch, venv)}")
+    sqil.rl._collect_pool.shutdown(wait=True)
+    venv.close()
+
+
+def rlhf_host_pendulum(dev):
+    """Preference comparisons over 16 host Pendulum-v1 envs with exploration
+    (``exploration_frac`` 0.25: the exploration wrapper's ``host_policy_fn``
+    through the host rollout path): PPO n_steps 64, 8 minibatches x 4
+    epochs, a (32, 32) actor-critic with normalize_features,
+    ``BasicRewardNet(normalize_input=True)``, fragments of 50 steps."""
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+    from imitation_tpu_torch.models.policies import ActorCriticPolicy
+    from imitation_tpu_torch.native import CppVectorEnv
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+    from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
+
+    venv = CppVectorEnv("Pendulum-v1", num_envs=16, seed=0, device=dev)
+    policy = ActorCriticPolicy(venv.observation_space, venv.action_space, hid_sizes=(32, 32),
+                               normalize_features=True)
+    ppo = PPO(venv, policy, PPOConfig(n_steps=64, n_minibatches=8, n_epochs=4, learning_rate=2e-3,
+                                      ent_coef=0.01, gamma=0.97, clip_range=0.1), seed=0)
+    net = BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=True)
+    agent = pc.AgentTrainer(ppo, net, venv, rng=0, exploration_frac=0.25)
+    return pc.PreferenceComparisons(
+        agent, net, num_iterations=2, fragmenter=pc.RandomFragmenter(rng=0, warning_threshold=0),
+        preference_gatherer=pc.SyntheticGatherer(rng=np.random.default_rng(0)), fragment_length=50,
+        transition_oversampling=1.0, initial_comparison_frac=0.1, initial_epoch_multiplier=4.0,
+        allow_variable_horizon=True, rng=0, seed=0, custom_logger=make_logger())
+
+
 def main() -> int:
     import torch
 
@@ -2851,7 +3231,7 @@ def main() -> int:
     for phase, fn in (
         ("sac_pendulum", lambda: run_sac(torch, dev)),
         ("sqil_cartpole", lambda: run_sqil(
-            torch, dev, "CartPole-v1", "sqil_cartpole", 20_000, 10,
+            torch, dev, "CartPole-v1", "sqil_cartpole", 10_000, 10,
             dict(dqn_config=DQNConfig(learning_starts=500, train_freq=4, batch_size=64, gradient_steps=4,
                                       learning_rate=1e-4, target_update_interval=2000,
                                       exploration_fraction=0.3, exploration_final_eps=0.05)))),
@@ -2873,9 +3253,9 @@ def main() -> int:
     # Preference comparisons: PPO generators launch B1 once per PPO
     # iteration, at [64, 32] and [128, 8]; PEBBLE's SAC launches neither.
     for phase, make, budget, cuts in (
-        ("rlhf_pendulum", rlhf_pendulum, (12_288, 90), (
-            "3 iterations instead of 20", "12,288 timesteps instead of 400,000 (two PPO iterations of "
-            "64 x 32 per agent training)", "90 comparisons instead of 600 (the preset's ~30 per iteration)")),
+        ("rlhf_pendulum", rlhf_pendulum, (8_192, 60), (
+            "2 iterations instead of 20", "8,192 timesteps instead of 400,000 (two PPO iterations of "
+            "64 x 32 per agent training)", "60 comparisons instead of 600 (the preset's ~30 per iteration)")),
         ("rlhf_active_pendulum", lambda d: rlhf_cli(d, "ppo"), (4_096, 80), (
             "2 iterations instead of 10", "4,096 timesteps instead of 20,000",
             "80 comparisons instead of 400")),
@@ -2944,6 +3324,38 @@ def main() -> int:
             paths.update(fn() or {})
             log(phase, f"done in {time.perf_counter() - t0:.2f} s")
     log("cli", f"the CLI phases took {time.perf_counter() - t_cli:.2f} s")
+
+    # The host-env path: the C++ engine on the card's host, GAIL at bench.py's
+    # main-path learner configuration over 64 host Pendulum-v1 envs (B1 at
+    # [64, 64] once a round, B2 8 times a round at 2 x 8192 rows), serialized
+    # and overlapped; then short host phases of SAC, SQIL (DQN, overlapped),
+    # DAgger and RLHF with exploration.
+    t_host = time.perf_counter()
+    t0 = time.perf_counter()
+    run_host_envs(torch, dev)
+    log("host_envs", f"done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches, s_ser, s_ovl = run_gail_host_pendulum(torch, dev)
+    paths.update(launches)
+    log("gail_host_pendulum", f"done in {time.perf_counter() - t0:.2f} s; {s_ser:.3f} s per round "
+                              f"serialized, {s_ovl:.3f} overlapped")
+    for phase, fn in (("sac_host_pendulum", lambda: run_sac_host(torch, dev)),
+                      ("sqil_host_cartpole", lambda: run_sqil_host(torch, dev)),
+                      ("dagger_host_cartpole", lambda: run_dagger(
+                          torch, dev, "CartPole-v1", "dagger_host_cartpole", dagger.LinearBetaSchedule(15),
+                          1000, host=True, max_episode_steps=100))):
+        t0 = time.perf_counter()
+        zero_counts()
+        fn()
+        if counts() != {"gae": 0, "assemble_rows": 0}:
+            raise AssertionError(f"{phase}: kernel launches {counts()} on a path without either kernel")
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+    t0 = time.perf_counter()
+    paths["rlhf_host_pendulum"], _ = run_rlhf(
+        torch, "rlhf_host_pendulum", rlhf_host_pendulum(dev), 4_096, 60,
+        ("2 iterations", "4,096 timesteps (4 PPO iterations of 64 x 16)", "60 comparisons"), refit=False)
+    log("rlhf_host_pendulum", f"done in {time.perf_counter() - t0:.2f} s")
+    log("host", f"the host-env phases took {time.perf_counter() - t_host:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

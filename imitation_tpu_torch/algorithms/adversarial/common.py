@@ -1,7 +1,9 @@
 """Adversarial imitation learning core (the GAIL/AIRL common loop).
 
 Port of ``imitation_tpu/algorithms/adversarial/common.py`` for a PPO or
-SAC generator on device envs. The training loop alternates:
+SAC generator on a device env or a host vector env (``venv.is_host``: the
+generator collects on the host, and everything else runs on
+``venv.device``). The training loop alternates:
 
     for each round (total_timesteps // gen_train_timesteps):
         train_gen:  the generator trains on rewards relabelled by the
@@ -22,7 +24,9 @@ hand-written CUDA kernel B2 (``ops.disc_assembly.assemble_fields``), one
 launch for all four fields, gathering straight from the demo store and the
 replay ring. Parameters are updated in place; metrics stay on the device until
 ``train`` reads them once per round, or ``train_fused`` once per
-``rounds_per_sync`` rounds.
+``rounds_per_sync`` rounds (device envs only). When the generator has a
+``phase_timer``, each round's disc steps are timed as ``disc_update``,
+waiting for the device at their end.
 
 Subclass contract (GAIL, AIRL): ``logits_expert_is_high`` maps reward-net
 outputs (and, where ``needs_policy_log_prob``, log pi(a|s)) to discriminator
@@ -37,6 +41,7 @@ The ``record_function`` ranges of a round are named for the algorithm:
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
@@ -362,12 +367,15 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         n = n or self.n_disc_updates_per_round
         policy = self._current_policy()
         all_stats = []
-        for _ in range(n):
-            with record_function(f"{self._range}.disc_step"):
-                self.disc_state, stats = self._disc_step(
-                    self.disc_state, self._gen_buffer_state, policy, self._demo_store.batch
-                )
-            all_stats.append(stats)
+        timer = getattr(self.gen_algo, "phase_timer", None)
+        with timer.phase("disc_update", block_on=list(self.reward_net.parameters())) \
+                if timer is not None else contextlib.nullcontext():
+            for _ in range(n):
+                with record_function(f"{self._range}.disc_step"):
+                    self.disc_state, stats = self._disc_step(
+                        self.disc_state, self._gen_buffer_state, policy, self._demo_store.batch
+                    )
+                all_stats.append(stats)
         stacked = {k: torch.stack([s[k] for s in all_stats]) for k in all_stats[0]}
         return stacked if not sync else rl_common.metrics_to_host(stacked)
 
@@ -389,6 +397,9 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             self.gen_algo.actor.load_state_dict(state_dict)
         else:
             self.policy.load_state_dict(state_dict)
+        # A background collection (overlap_collection) ran under the
+        # replaced weights: drop it.
+        self.gen_algo.discard_pending_collection()
 
     # -- generator step ----------------------------------------------------
     def train_gen(self, total_timesteps: Optional[int] = None, sync: bool = True) -> Mapping[str, Any]:
@@ -451,8 +462,11 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
         ``mean/gen/*`` and ``mean/disc/*``. The replay ring is sized from
         ``_example_transitions`` before the first round. ``ReplayBuffer.store``
         writes the ring in place, which is harmless here: only the newest
-        buffer state is kept.
+        buffer state is kept. A host-env generator is refused, as in the
+        JAX package.
         """
+        if getattr(self.gen_algo, "is_host_env", False):
+            raise ValueError("train_fused requires a device env")
         n_rounds = total_timesteps // self.gen_train_timesteps
         if n_rounds < 1:
             raise ValueError(
@@ -503,3 +517,6 @@ class AdversarialTrainer(base.DemonstrationAlgorithm):
             if callback:
                 callback(r)
             self.logger.dump(self._global_step)
+        # A live background collection would race the caller's next use of
+        # the venv (an evaluation, say): host envs are not thread-safe.
+        self.gen_algo.discard_pending_collection()

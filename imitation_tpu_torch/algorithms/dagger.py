@@ -1,6 +1,6 @@
 """DAgger: Dataset Aggregation (Ross et al. 2011).
 
-Port of ``imitation_tpu/algorithms/dagger.py`` for device envs. Round-based:
+Port of ``imitation_tpu/algorithms/dagger.py``. Round-based:
 collect demonstrations with a beta-mixture of expert and robot actions, then
 run BC on all demonstrations gathered so far.
 
@@ -17,8 +17,10 @@ run BC on all demonstrations gathered so far.
   policy to ``policy-XXX`` and ``policy-latest``; ``reconstruct_trainer``
   rebuilds a trainer that continues as the saved one would have.
 
-Host (gym-bridge) envs are not ported, so neither is the collector's host
-branch.
+On a host vector env (``venv.is_host``) the collector steps the env through
+``data.rollout.HostCollector``, the mixture running on CPU copies of the
+modules it reads; the expert's policy must then run on host tensors, as the
+scripted experts do.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from imitation_tpu_torch import make_generator
 from imitation_tpu_torch.algorithms import base
@@ -98,8 +101,8 @@ def _mixture_mask(n: int, beta: float, generator: torch.Generator) -> torch.Tens
 
 
 class InteractiveTrajectoryCollector:
-    """Collects beta-mixture rollouts on a device env, recording the expert's
-    actions, and saves the finished episodes to ``save_dir``."""
+    """Collects beta-mixture rollouts on a device or host env, recording the
+    expert's actions, and saves the finished episodes to ``save_dir``."""
 
     def __init__(
         self,
@@ -117,17 +120,31 @@ class InteractiveTrajectoryCollector:
         self.traj_index = 0
 
     def _mixture_policy_apply(self, expert_apply: rollout_mod.PolicyApply) -> rollout_mod.PolicyApply:
-        beta, robot_apply = self.beta, self.robot_policy_apply
+        beta = self.beta
 
-        def apply(obs: torch.Tensor, generator: torch.Generator):
-            expert_acts, _ = expert_apply(obs, generator)
-            robot_acts, _ = robot_apply(obs, generator)
-            use_expert = _mixture_mask(obs.shape[0], beta, generator)
-            mask = use_expert.reshape((-1,) + (1,) * (expert_acts.dim() - 1))
-            acts = torch.where(mask, expert_acts, robot_acts)
-            return acts, {"expert_acts": expert_acts}
+        def make(expert_apply: rollout_mod.PolicyApply, robot_apply: rollout_mod.PolicyApply):
+            def apply(obs: torch.Tensor, generator: torch.Generator):
+                expert_acts, _ = expert_apply(obs, generator)
+                robot_acts, _ = robot_apply(obs, generator)
+                use_expert = _mixture_mask(obs.shape[0], beta, generator)
+                mask = use_expert.reshape((-1,) + (1,) * (expert_acts.dim() - 1))
+                acts = torch.where(mask, expert_acts, robot_acts)
+                return acts, {"expert_acts": expert_acts}
 
-        return apply
+            return apply
+
+        fns = (expert_apply, self.robot_policy_apply)
+        modules = [getattr(fn, "module", None) for fn in fns]
+        if all(m is None for m in modules):
+            return make(*fns)
+
+        # Marked for a host collector, which rebuilds the mixture over CPU
+        # copies of the modules that the two policies read.
+        def rebind(held: nn.ModuleList) -> rollout_mod.PolicyApply:
+            copies = iter(held)
+            return make(*(fn if m is None else fn.rebind(next(copies)) for fn, m in zip(fns, modules)))
+
+        return rollout_mod.module_fn(nn.ModuleList([m for m in modules if m is not None]), rebind)
 
     def collect_trajectories(
         self,
@@ -142,12 +159,18 @@ class InteractiveTrajectoryCollector:
         mixture = self._mixture_policy_apply(expert_apply)
         accum = rollout_mod.TrajectoryAccumulator(self.venv.num_envs)
         collected: List[types.TrajectoryWithRew] = []
-        generator = make_generator(seed, self.venv.device)
-        state = self.venv.reset(generator)
-        while not sample_until(collected):
-            state, chunk = rollout_mod.collect(self.venv, mixture, state, chunk_size, generator)
-            # Demonstrations record the EXPERT action, not the stepped one.
-            collected.extend(accum.add_chunk(chunk.replace(acts=chunk.aux["expert_acts"])))
+        if getattr(self.venv, "is_host", False):
+            collector = rollout_mod.HostCollector(self.venv, mixture, seed=seed)
+            while not sample_until(collected):
+                chunk = collector.collect(chunk_size, device="cpu")
+                collected.extend(accum.add_chunk(chunk.replace(acts=chunk.aux["expert_acts"])))
+        else:
+            generator = make_generator(seed, self.venv.device)
+            state = self.venv.reset(generator)
+            while not sample_until(collected):
+                state, chunk = rollout_mod.collect(self.venv, mixture, state, chunk_size, generator)
+                # Demonstrations record the EXPERT action, not the stepped one.
+                collected.extend(accum.add_chunk(chunk.replace(acts=chunk.aux["expert_acts"])))
         for traj in collected:
             _save_dagger_demo(traj, self.traj_index, self.save_dir)
             self.traj_index += 1

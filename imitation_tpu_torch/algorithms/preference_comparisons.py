@@ -165,7 +165,12 @@ def _has_output_norm(reward_net: RewardNet) -> bool:
 
 def _explore(explorer: ExplorationWrapper, venv: VectorEnv, steps: int, seed: int) -> List[types.TrajectoryWithRew]:
     """Complete episodes of the exploration mixture covering ``steps``
-    transitions, from fresh envs and a generator seeded with ``seed``."""
+    transitions, from fresh envs and a generator seeded with ``seed``. On a
+    host env the mixture runs as ``host_policy_fn`` through the host
+    rollout path."""
+    if getattr(venv, "is_host", False):
+        return list(rollout_mod.generate_trajectories(
+            explorer.host_policy_fn(), venv, rollout_mod.make_min_timesteps(steps), rng=seed))
     generator = make_generator(seed, venv.device)
     env_state = venv.reset(generator)
     mode = explorer.initial_mode(generator)

@@ -1,20 +1,27 @@
-"""Rollout collection: the on-device step loop and the host trajectory API.
+"""Rollout collection: the on-device step loop, host-env collection and the
+host trajectory API.
 
-Port of the device-env half of ``imitation_tpu/data/rollout.py``:
+Port of ``imitation_tpu/data/rollout.py``:
 
 * ``collect``: steps a ``VectorEnv`` with a policy for T steps and returns a
   ``RolloutChunk`` of ``[T, B]`` tensors on the env's device. Where the JAX
   package scans one traced step, this is a Python loop of eager launches.
+* ``HostCollector``: the same chunk from a host vector env (``is_host``,
+  e.g. ``native.CppVectorEnv``): the env steps on the host and the policy's
+  forward runs on a CPU snapshot of its module, refreshed explicitly; the
+  finished chunk moves to ``venv.device`` once per field.
 * ``generate_trajectories``: collects complete episodes until a
   ``sample_until`` condition holds, cuts them on the host into
-  ``TrajectoryWithRew`` objects and shuffles them, as the reference does;
-  ``rollout`` and ``generate_transitions`` build on it.
+  ``TrajectoryWithRew`` objects and shuffles them, as the reference does
+  (through ``generate_trajectories_host`` on a host env); ``rollout`` and
+  ``generate_transitions`` build on it.
 * Host helpers: the ``sample_until`` conditions, ``flatten_trajectories``
   (``_with_rew``), ``rollout_stats`` and ``discounted_sum``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -29,6 +36,18 @@ from imitation_tpu_torch.envs.vector import VecEnvState, VectorEnv
 PolicyApply = Callable[[torch.Tensor, torch.Generator], Tuple[torch.Tensor, Any]]
 
 GenTrajTerminationFn = Callable[[Sequence[types.TrajectoryWithRew]], bool]
+
+CHUNK_FIELDS = ("obs", "acts", "rews", "next_obs", "terminated", "truncated",
+                "episode_return", "episode_length")
+
+
+def module_fn(module: torch.nn.Module, make: Callable[[torch.nn.Module], PolicyApply]) -> PolicyApply:
+    """``make(module)``: a rollout policy that reads ``module``'s weights,
+    marked with ``module`` and ``rebind = make`` so that a ``HostCollector``
+    can build the same policy over a CPU copy of the module."""
+    fn = make(module)
+    fn.module, fn.rebind = module, make
+    return fn
 
 
 @dataclasses.dataclass
@@ -73,9 +92,7 @@ def collect(
     ``next_obs`` at done steps is the *terminal* observation, so reward
     relabelling over the chunk sees the true (s, a, s', done) tuples.
     """
-    names = ("obs", "acts", "rews", "next_obs", "terminated", "truncated",
-             "episode_return", "episode_length")
-    recs: Dict[str, List[torch.Tensor]] = {k: [] for k in names}
+    recs: Dict[str, List[torch.Tensor]] = {k: [] for k in CHUNK_FIELDS}
     aux_recs: List[Any] = []
     for _ in range(num_steps):
         obs = state.obs
@@ -109,6 +126,106 @@ def chunk_to_transitions(chunk: RolloutChunk) -> types.TransitionBatch:
         dones=flat(chunk.dones.float()),
         rews=flat(chunk.rews),
     )
+
+
+class HostCollector:
+    """Rollout collection for a host vector env (``venv.is_host``).
+
+    The env steps on the host; the policy's forward runs on the CPU, one
+    call per env step for all B envs, under ``torch.inference_mode``. A
+    policy made by ``module_fn`` (every policy module's ``sample_fn``) runs
+    over a CPU snapshot of its module, which ``refresh`` (or
+    ``set_policy``) overwrites with the module's ``state_dict``, buffers
+    included, by a synchronous copy. The learners update their module in
+    place on ``venv.device`` meanwhile, so a collection running on another
+    thread reads only the snapshot. Other policies (scripted experts,
+    ``host_stateful`` ones) are host functions and are called as they are.
+    Draws come from the collector's own CPU generator, seeded with ``seed``.
+    ``collect`` stacks each field in numpy and copies it to ``venv.device``
+    (or ``device``) once.
+    """
+
+    def __init__(self, venv, policy_apply: PolicyApply, seed: int = 0):
+        self.venv = venv
+        self._source: Optional[torch.nn.Module] = None
+        self._snapshot: Optional[torch.nn.Module] = None
+        self.set_policy(policy_apply)
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        """Resets the env and the generator for a fresh collection pass."""
+        self.generator = torch.Generator().manual_seed(int(seed))
+        self.obs = self.venv.reset(seed=seed)
+
+    def set_policy(self, policy_apply: PolicyApply) -> None:
+        """Collects with ``policy_apply`` from now on, over a refreshed
+        snapshot where it reads a module."""
+        module = getattr(policy_apply, "module", None)
+        if module is None:
+            self._source, self._apply = None, policy_apply
+            return
+        if module is not self._source:
+            self._snapshot = copy.deepcopy(module).cpu()
+            self._source = module
+        self._apply = policy_apply.rebind(self._snapshot)
+        self.refresh()
+
+    def refresh(self) -> None:
+        """Copies the module's current weights and buffers into the snapshot."""
+        if self._source is not None:
+            with torch.no_grad():
+                self._snapshot.load_state_dict(self._source.state_dict())
+
+    def collect(self, num_steps: int, device=None) -> RolloutChunk:
+        recs: Dict[str, List[np.ndarray]] = {k: [] for k in CHUNK_FIELDS}
+        aux_recs: List[Dict[str, np.ndarray]] = []
+        for _ in range(num_steps):
+            with torch.inference_mode():
+                acts, aux = self._apply(torch.from_numpy(self.obs), self.generator)
+                acts = acts.numpy() if isinstance(acts, torch.Tensor) else np.asarray(acts)
+                aux = {k: v.numpy() for k, v in aux.items()}
+            out = self.venv.step(acts)
+            for k, v in (("obs", self.obs), ("acts", acts), ("rews", out["reward"]),
+                         ("next_obs", out["terminal_obs"]), ("terminated", out["terminated"]),
+                         ("truncated", out["truncated"]), ("episode_return", out["episode_return"]),
+                         ("episode_length", out["episode_length"])):
+                recs[k].append(v)
+            aux_recs.append(aux)
+            self.obs = out["obs"]
+        dev = self.venv.device if device is None else device
+
+        def put(arrays):
+            return torch.from_numpy(np.stack(arrays)).to(dev)
+
+        aux = {k: put([a[k] for a in aux_recs]) for k in aux_recs[0]} if aux_recs else {}
+        return RolloutChunk(aux=aux, **{k: put(v) for k, v in recs.items()})
+
+
+def generate_trajectories_host(
+    policy_apply: PolicyApply,
+    venv,
+    sample_until: GenTrajTerminationFn,
+    rng: Union[int, np.random.Generator],
+    *,
+    chunk_size: int = 128,
+) -> Sequence[types.TrajectoryWithRew]:
+    """``generate_trajectories`` over a host vector env. One collector is
+    kept on the venv and reused with each call's policy; chunks stay on the
+    host."""
+    seed = int(rng.integers(0, 2**31 - 1)) if isinstance(rng, np.random.Generator) else int(rng)
+    collector = getattr(venv, "_gen_traj_collector", None)
+    if collector is None:
+        collector = HostCollector(venv, policy_apply, seed=seed)
+        venv._gen_traj_collector = collector
+    else:
+        collector.set_policy(policy_apply)
+        collector.reseed(seed)
+    accum = TrajectoryAccumulator(venv.num_envs)
+    trajectories: List[types.TrajectoryWithRew] = []
+    while not sample_until(trajectories):
+        trajectories.extend(accum.add_chunk(collector.collect(chunk_size, device="cpu")))
+    perm = np.random.default_rng(seed).permutation(len(trajectories))
+    return [trajectories[i] for i in perm]
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +327,11 @@ def generate_trajectories(
 
     Rollouts run on the env's device in fixed-size chunks; episodes are cut
     on the host between chunks, then shuffled so that truncation by the
-    caller does not favour short episodes.
+    caller does not favour short episodes. A host vector env goes to
+    ``generate_trajectories_host``.
     """
+    if getattr(venv, "is_host", False):
+        return generate_trajectories_host(policy_apply, venv, sample_until, rng, chunk_size=chunk_size)
     if isinstance(rng, np.random.Generator):
         seed = int(rng.integers(0, 2**31 - 1))
     else:

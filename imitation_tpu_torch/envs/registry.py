@@ -1,8 +1,9 @@
 """Environment registry: name -> batched on-device Env factory.
 
 Port of ``imitation_tpu/envs/registry.py`` for the device envs: the
-classic-control names and their seals fixed-horizon variants. Host (MuJoCo,
-gym-bridge) envs are not ported yet.
+classic-control names and their seals fixed-horizon variants. The C++
+engine's host envs are reached through ``imitation_tpu_torch.native``, as in
+the JAX package; the MuJoCo and gym-bridge envs are not ported yet.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from imitation_tpu_torch import make_generator
+from imitation_tpu_torch.data.rollout import module_fn
 from imitation_tpu_torch.envs.base import DictSpace, Space
 from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.models.distributions import Categorical, DiagGaussian
@@ -248,11 +249,11 @@ class ActorCriticPolicy(nn.Module):
 
     def sample_fn(self):
         """(obs, generator) -> (acts, {log_prob, value}) for rollouts."""
-        return self._rollout_fn(deterministic=False)
+        return module_fn(self, lambda m: m._rollout_fn(deterministic=False))
 
     def deterministic_fn(self):
         """As ``sample_fn``, with the distribution's mode for the action."""
-        return self._rollout_fn(deterministic=True)
+        return module_fn(self, lambda m: m._rollout_fn(deterministic=True))
 
     def predict(self, obs, deterministic: bool = False, seed: int = 0) -> np.ndarray:
         """SB3-style host prediction: numpy observations in (one, or a batch

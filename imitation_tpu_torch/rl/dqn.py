@@ -1,7 +1,7 @@
 """DQN: off-policy Q-learning with a replay ring and a target network.
 
-Port of ``imitation_tpu/rl/dqn.py`` for device envs. ``train_step`` runs, on
-the env's device:
+Port of ``imitation_tpu/rl/dqn.py``. ``train_step`` runs, on the env's
+device:
 
 1. a collect of ``train_freq`` lockstep env steps with epsilon-greedy
    actions (``data.rollout.collect``), epsilon read from the state's
@@ -17,12 +17,18 @@ Until ``learning_starts`` rows are stored the JAX package runs the updates
 with masked gradients; here such an update computes its loss for the
 metrics without gradients and applies nothing, but the optimizer's count
 advances as optax's does (``Adam.step_masked``). The target copy is not
-masked. Host envs are not ported yet, so ``overlap_collection`` is refused
-when set.
+masked.
+
+Over a host vector env (``venv.is_host``) step 1 is
+``data.rollout.HostCollector`` with epsilon-greedy actions from a CPU
+snapshot of the Q-network, refreshed before each collection; with
+``overlap_collection`` the next collection runs on a background thread
+while this round's updates run.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import math
@@ -83,8 +89,9 @@ class DQNConfig:
     exploration_final_eps: float = 0.05
     max_grad_norm: float = 10.0
     hid_sizes: Tuple[int, ...] = (64, 64)
-    # Host envs only: collect the next train_freq steps while the device
-    # updates. The port has no host envs yet, so ``DQN`` raises when set.
+    # Host envs only: collect the next train_freq steps on a background
+    # thread, with the pre-update Q-net and epsilon, while the device
+    # updates. Refused over a device env.
     overlap_collection: bool = False
 
 
@@ -137,10 +144,15 @@ class DQN:
     ):
         if not venv.action_space.is_discrete:
             raise ValueError("DQN requires a discrete action space")
-        if config.overlap_collection:
+        self.is_host_env = bool(getattr(venv, "is_host", False))
+        if config.overlap_collection and not self.is_host_env:
+            # Refused rather than ignored: a device env has no host collection to overlap.
             raise NotImplementedError(
-                "overlap_collection pipelines host-env collection; host envs are not ported"
+                "overlap_collection pipelines host-env collection; a device env has none"
             )
+        self._host_collector: Optional[rollout_mod.HostCollector] = None
+        self._pending_chunk: Optional[concurrent.futures.Future] = None
+        self._collect_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self.venv = venv
         self.device = venv.device
         self.config = config
@@ -165,13 +177,21 @@ class DQN:
         zero = torch.zeros((1,), device=dev)
         example = TransitionBatch(obs=obs, acts=torch.zeros((1,), dtype=torch.int32, device=dev),
                                   next_obs=obs, dones=zero, rews=zero)
+        if self.is_host_env:
+            self.discard_pending_collection()
+            env_state = None
+            self._host_collector = rollout_mod.HostCollector(
+                self.venv, self._explore_fn(self.config.exploration_initial_eps), seed=self._seed
+            )
+        else:
+            env_state = self.venv.reset(generator)
         return DQNState(
             q_net=self.q_net,
             target_q_net=self.target_q_net,
             optimizer=common.make_optimizer(
                 self.q_net.parameters(), self.config.learning_rate, self.config.max_grad_norm
             ),
-            env_state=self.venv.reset(generator),
+            env_state=env_state,
             buffer_state=self.replay.init_state(example),
             generator=generator,
         )
@@ -188,42 +208,100 @@ class DQN:
     def greedy_fn(self):
         """Deterministic argmax-Q rollout policy ``(obs, generator) -> (acts, {})``."""
 
-        @torch.no_grad()
-        def f(obs: torch.Tensor, generator: Optional[torch.Generator] = None):
-            return torch.argmax(self.q_net(obs), dim=-1).to(torch.int32), {}
+        def make(q_net: QNetwork):
+            @torch.no_grad()
+            def f(obs: torch.Tensor, generator: Optional[torch.Generator] = None):
+                return torch.argmax(q_net(obs), dim=-1).to(torch.int32), {}
 
-        return f
+            return f
+
+        return rollout_mod.module_fn(self.q_net, make)
 
     def _explore_fn(self, eps: float):
         n_actions = self.venv.action_space.n
 
-        @torch.no_grad()
-        def f(obs: torch.Tensor, generator: torch.Generator):
-            greedy = torch.argmax(self.q_net(obs), dim=-1).to(torch.int32)
-            u, random_acts = _explore_draws(obs.shape[0], n_actions, generator)
-            return torch.where(u < eps, random_acts, greedy), {}
+        def make(q_net: QNetwork):
+            @torch.no_grad()
+            def f(obs: torch.Tensor, generator: torch.Generator):
+                greedy = torch.argmax(q_net(obs), dim=-1).to(torch.int32)
+                u, random_acts = _explore_draws(obs.shape[0], n_actions, generator)
+                return torch.where(u < eps, random_acts, greedy), {}
 
-        return f
+            return f
+
+        return rollout_mod.module_fn(self.q_net, make)
 
     # -- train step --------------------------------------------------------
     def train_step(self, state: DQNState):
         """Collect ``train_freq`` epsilon-greedy steps, store, update."""
-        cfg = self.config
+        if self.is_host_env:
+            if self.config.overlap_collection:
+                return self.train_step_host_overlapped(state)
+            return self.train_step_host(state)
         with record_function("dqn.collect"):
             env_state, chunk = rollout_mod.collect(
                 self.venv, self._explore_fn(self.epsilon(state.timesteps)), state.env_state,
-                cfg.train_freq, state.generator,
+                self.config.train_freq, state.generator,
             )
-        n = cfg.train_freq * self.venv.num_envs
+        return self._process_chunk(state, env_state, chunk)
+
+    def _point_collector(self, state: DQNState) -> None:
+        """Points the collector at a fresh snapshot of the Q-net and at the
+        epsilon of ``state``."""
+        if self._host_collector is None:
+            raise RuntimeError("call init_state() first")
+        self._host_collector.set_policy(self._explore_fn(self.epsilon(state.timesteps)))
+
+    def train_step_host(self, state: DQNState):
+        """Host-env path: ``train_freq`` epsilon-greedy steps through the
+        host collector, then the same store and TD updates on the device."""
+        with record_function("dqn.host_collect"):
+            self._point_collector(state)
+            chunk = self._host_collector.collect(self.config.train_freq)
+        return self._process_chunk(state, None, chunk)
+
+    def train_step_host_overlapped(self, state: DQNState):
+        """Pipelined host-env path (``DQNConfig.overlap_collection``): joins
+        the chunk collected during the previous round's updates, snapshots
+        the current (pre-update) Q-net with this state's epsilon, starts the
+        next collection on the collector's thread, then runs this round's
+        store and updates."""
+        if self._collect_pool is None:
+            self._collect_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dqn-host-collect"
+            )
+        if self._pending_chunk is None:
+            self._point_collector(state)
+            chunk = self._host_collector.collect(self.config.train_freq)
+        else:
+            # The snapshot is touched only once the thread that reads it is joined.
+            with record_function("dqn.collect_join"):
+                chunk = self._pending_chunk.result()
+            self._point_collector(state)
+        self._pending_chunk = self._collect_pool.submit(self._host_collector.collect, self.config.train_freq)
+        return self._process_chunk(state, None, chunk)
+
+    def discard_pending_collection(self) -> None:
+        """Joins and drops any background collection."""
+        if self._pending_chunk is not None:
+            try:
+                self._pending_chunk.result()
+            finally:
+                self._pending_chunk = None
+
+    def _process_chunk(self, state: DQNState, env_state: Optional[VecEnvState],
+                       chunk: rollout_mod.RolloutChunk):
+        """``_process`` over a ``[T, B]`` chunk's transitions."""
+        T, B = chunk.acts.shape[0], chunk.acts.shape[1]
 
         def flat(x):
-            return x.reshape((n,) + tuple(x.shape[2:]))
+            return x.reshape((T * B,) + tuple(x.shape[2:]))
 
         transitions = TransitionBatch(
             obs=flat(chunk.obs),
-            acts=flat(chunk.acts),
+            acts=flat(chunk.acts).to(torch.int32),
             next_obs=flat(chunk.next_obs),
-            # the TD target must not bootstrap through true terminals only
+            # the TD target bootstraps through time limits, not true terminals
             dones=flat(chunk.terminated.float()),
             rews=flat(chunk.rews),
         )
@@ -325,4 +403,5 @@ class DQN:
                 logger.dump(step=state.timesteps)
             if callback is not None:
                 callback(state, metrics)
+        self.discard_pending_collection()
         return state

@@ -1,7 +1,7 @@
 """PPO: clipped-surrogate on-policy learner.
 
-Port of ``imitation_tpu/rl/ppo.py`` for device envs. ``train_step`` runs, on
-the env's device:
+Port of ``imitation_tpu/rl/ppo.py``. ``train_step`` runs, on the env's
+device:
 
 1. a rollout of ``n_steps`` lockstep env steps (``data.rollout.collect``);
 2. optional learned-reward relabelling of the whole ``[T, B]`` chunk in one
@@ -15,12 +15,22 @@ eager launches, and the policy's parameters are updated in place. Metrics
 stay on the device until the caller reads them. ``learn`` is the host loop
 of train steps with logging. The learning rate is constant or falls
 linearly to 0 over ``total_updates_hint`` train steps (``lr_schedule``).
-Host envs are not ported yet, so ``overlap_collection``, which pipelines
-host collection, is refused when set rather than ignored.
+
+Over a host vector env (``venv.is_host``, e.g. ``native.CppVectorEnv``)
+step 1 is ``data.rollout.HostCollector``: the env steps on the host and the
+policy's forward runs on a CPU snapshot of the policy, refreshed from the
+card's weights before each collection; steps 2-4 run on ``venv.device`` as
+above. With ``overlap_collection`` the next chunk is collected on a
+background thread, from the pre-update snapshot, while this iteration's
+update runs (``train_step_host_overlapped``). ``phase_timer`` (a
+``util.profiling.PhaseTimer``) splits the host paths into ``host_collect``,
+``device_update`` and ``collect_join``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional
@@ -58,8 +68,11 @@ class PPOConfig:
     # and every later update of the iteration is skipped (costs one device
     # sync per minibatch while set).
     target_kl: Optional[float] = None
-    # Host envs only: collect the next chunk while the device updates. The
-    # port has no host envs yet, so ``PPO`` raises when this is set.
+    # Host envs only: collect the next chunk on a background thread, with
+    # the pre-update policy (one update stale; the chunk's behaviour
+    # log-probs keep the importance ratios right), while the device runs
+    # this iteration's update. Off: SB3's exact on-policy order. Refused
+    # over a device env.
     overlap_collection: bool = False
 
 
@@ -69,7 +82,7 @@ def _epoch_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
 
 
 class PPO:
-    """On-policy PPO over a device ``VectorEnv``.
+    """On-policy PPO over a device ``VectorEnv`` or a host vector env.
 
     Pass ``reward_fn`` to relabel rewards with a learned reward (GAIL);
     ``return_transitions=True`` makes ``train_step`` also return the raw
@@ -93,10 +106,19 @@ class PPO:
         self.reward_fn = reward_fn
         self.return_transitions = return_transitions
         self._seed = seed
-        if config.overlap_collection:
+        self.is_host_env = bool(getattr(venv, "is_host", False))
+        if config.overlap_collection and not self.is_host_env:
+            # Refused rather than ignored: a device env has no host collection to overlap.
             raise NotImplementedError(
-                "overlap_collection pipelines host-env collection; host envs are not ported"
+                "overlap_collection pipelines host-env collection; a device env has none"
             )
+        self._host_collector: Optional[rollout_mod.HostCollector] = None
+        self._pending_chunk: Optional[concurrent.futures.Future] = None
+        self._collect_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        # Optional util.profiling.PhaseTimer for the host-env paths; the
+        # serialized path then waits for the device at the end of each
+        # update, so that ``device_update`` covers its execution.
+        self.phase_timer = None
         if config.lr_schedule == "linear":
             updates_per_call = config.n_epochs * config.n_minibatches
             self._lr = common.linear_schedule(
@@ -121,7 +143,14 @@ class PPO:
         optimizer = common.make_optimizer(
             self.policy.parameters(), self._lr, self.config.max_grad_norm
         )
-        env_state = self.venv.reset(generator)
+        if self.is_host_env:
+            self.discard_pending_collection()
+            env_state = None
+            self._host_collector = rollout_mod.HostCollector(
+                self.venv, self.policy.sample_fn(), seed=self._seed
+            )
+        else:
+            env_state = self.venv.reset(generator)
         reward_norm = None
         if self.config.normalize_rewards:
             dev = self.device
@@ -141,7 +170,11 @@ class PPO:
 
     # -- train step --------------------------------------------------------
     def train_step(self, state: common.RLState, reward_params: Any = None):
-        """Rollout + update on the device."""
+        """Rollout + update on the device (host collection over a host env)."""
+        if self.is_host_env:
+            if self.config.overlap_collection:
+                return self.train_step_host_overlapped(state, reward_params)
+            return self.train_step_host(state, reward_params)
         with record_function("ppo.collect"):
             env_state, chunk = rollout_mod.collect(
                 self.venv, self.policy.sample_fn(), state.env_state,
@@ -149,6 +182,65 @@ class PPO:
             )
         with record_function("ppo.process_chunk"):
             return self.process_chunk(state, env_state, chunk, state.generator, reward_params)
+
+    def _phase(self, name: str, block_on=None):
+        if self.phase_timer is None:
+            return contextlib.nullcontext()
+        return self.phase_timer.phase(name, block_on=block_on)
+
+    def _host_collect(self) -> rollout_mod.RolloutChunk:
+        """Refreshes the collector's snapshot and collects one chunk."""
+        if self._host_collector is None:
+            raise RuntimeError("call init_state() first")
+        self._host_collector.refresh()
+        return self._host_collector.collect(self.config.n_steps)
+
+    def train_step_host(self, state: common.RLState, reward_params: Any = None):
+        """Host-env path: collect on the host, then the update on the device."""
+        with self._phase("host_collect"), record_function("ppo.host_collect"):
+            chunk = self._host_collect()
+        block_on = list(self.policy.parameters()) if self.phase_timer is not None else None
+        with self._phase("device_update", block_on=block_on), record_function("ppo.process_chunk"):
+            return self.process_chunk(state, None, chunk, state.generator, reward_params)
+
+    def train_step_host_overlapped(self, state: common.RLState, reward_params: Any = None):
+        """Pipelined host-env path (``PPOConfig.overlap_collection``).
+
+        Joins the chunk collected in the background during the previous
+        iteration's update, snapshots the current (pre-update) weights,
+        starts collecting the next chunk from that snapshot on the
+        collector's thread, and runs this iteration's update. The snapshot
+        is complete before the update is launched (a synchronous copy), and
+        the thread reads nothing else of the policy, so the in-place update
+        cannot race it.
+        """
+        if self._collect_pool is None:
+            self._collect_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ppo-host-collect"
+            )
+        if self._pending_chunk is None:
+            chunk = self._host_collect()
+        else:
+            # Only the host-blocked wait is timed: a device barrier here
+            # would serialize the pipeline this path exists for.
+            with self._phase("collect_join"), record_function("ppo.collect_join"):
+                chunk = self._pending_chunk.result()
+            self._host_collector.refresh()
+        self._pending_chunk = self._collect_pool.submit(
+            self._host_collector.collect, self.config.n_steps
+        )
+        with record_function("ppo.process_chunk"):
+            return self.process_chunk(state, None, chunk, state.generator, reward_params)
+
+    def discard_pending_collection(self) -> None:
+        """Joins and drops any background collection (call after replacing
+        the policy's weights from outside, e.g. a warm start, so that the
+        next chunk is not one collected under the replaced policy)."""
+        if self._pending_chunk is not None:
+            try:
+                self._pending_chunk.result()
+            finally:
+                self._pending_chunk = None
 
     def _normalize_rewards(self, reward_norm: common.RewNormState, rews, dones):
         """VecNormalize-style scaling by the running std of discounted returns."""
@@ -340,4 +432,7 @@ class PPO:
                     logger.dump(step=state.timesteps)
                 if callback is not None:
                     callback(state, host_metrics)
+        # A live background collection would race the caller's next use of
+        # the venv (an evaluation, say): host envs are not thread-safe.
+        self.discard_pending_collection()
         return state

@@ -1,7 +1,7 @@
 """SAC: Soft Actor-Critic with automatic temperature tuning.
 
-Port of ``imitation_tpu/rl/sac.py`` for device envs. ``train_step`` runs, on
-the env's device:
+Port of ``imitation_tpu/rl/sac.py``. ``train_step`` runs, on the env's
+device:
 
 1. a collect of ``train_freq`` lockstep env steps under the squashed-Gaussian
    actor (``data.rollout.collect``), its actions scaled to the env's bounds;
@@ -21,13 +21,18 @@ with every gradient masked to zero. Here such an update computes its losses
 for the metrics without gradients and applies nothing, but each optimizer's
 count advances as optax's does (``Adam.step_masked``), so the bias
 corrections of the first real update agree. Parameters are updated in
-place; metrics stay on the device until the caller reads them. Host envs
-are not ported yet, so ``overlap_collection``, which pipelines host
-collection, is refused when set rather than ignored.
+place; metrics stay on the device until the caller reads them.
+
+Over a host vector env (``venv.is_host``) step 1 is
+``data.rollout.HostCollector`` on a CPU snapshot of the actor, refreshed
+before each collection, and steps 2-3 run on ``venv.device``; with
+``overlap_collection`` the next ``train_freq`` steps are collected on a
+background thread while this round's updates run.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import math
@@ -120,8 +125,9 @@ class SACConfig:
     target_entropy: Optional[float] = None  # default -act_dim
     actor_hid_sizes: Tuple[int, ...] = (256, 256)
     critic_hid_sizes: Tuple[int, ...] = (256, 256)
-    # Host envs only: collect the next train_freq steps while the device
-    # updates. The port has no host envs yet, so ``SAC`` raises when set.
+    # Host envs only: collect the next train_freq steps on a background
+    # thread, with the pre-update actor, while the device updates. Refused
+    # over a device env.
     overlap_collection: bool = False
 
 
@@ -186,9 +192,7 @@ class SACPolicy(nn.Module):
         """Squashed actions in (-1, 1) -> env-scaled actions."""
         return squashed.reshape((-1,) + tuple(self.action_space.shape)) * self.act_scale + self.act_center
 
-    def sample_fn(self):
-        """(obs, generator) -> (env-scaled acts, {log_prob}) for rollouts."""
-
+    def _sample_closure(self):
         @torch.no_grad()
         def f(obs: torch.Tensor, generator: torch.Generator):
             squashed, lp = self.actor(obs).sample_and_log_prob(generator)
@@ -196,14 +200,20 @@ class SACPolicy(nn.Module):
 
         return f
 
-    def deterministic_fn(self):
-        """As ``sample_fn``, with the distribution's mode and no aux."""
-
+    def _mode_closure(self):
         @torch.no_grad()
         def f(obs: torch.Tensor, generator: Optional[torch.Generator] = None):
             return self.scale(self.actor(obs).mode()), {}
 
         return f
+
+    def sample_fn(self):
+        """(obs, generator) -> (env-scaled acts, {log_prob}) for rollouts."""
+        return rollout_mod.module_fn(self, SACPolicy._sample_closure)
+
+    def deterministic_fn(self):
+        """As ``sample_fn``, with the distribution's mode and no aux."""
+        return rollout_mod.module_fn(self, SACPolicy._mode_closure)
 
     def log_prob(self, obs: torch.Tensor, acts_env: torch.Tensor) -> torch.Tensor:
         """log pi(a|s) of env-scaled actions, the rescale's Jacobian
@@ -232,10 +242,18 @@ class SAC:
     ):
         if venv.action_space.is_discrete:
             raise ValueError("SAC requires a continuous action space")
-        if config.overlap_collection:
+        # Host envs: a HostCollector steps the env, everything after the
+        # collect runs on the device. Adversarial ``train_fused`` reads
+        # ``is_host_env`` for its own refusal.
+        self.is_host_env = bool(getattr(venv, "is_host", False))
+        if config.overlap_collection and not self.is_host_env:
+            # Refused rather than ignored: a device env has no host collection to overlap.
             raise NotImplementedError(
-                "overlap_collection pipelines host-env collection; host envs are not ported"
+                "overlap_collection pipelines host-env collection; a device env has none"
             )
+        self._host_collector: Optional[rollout_mod.HostCollector] = None
+        self._pending_chunk: Optional[concurrent.futures.Future] = None
+        self._collect_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self.venv = venv
         self.device = venv.device
         self.config = config
@@ -284,6 +302,14 @@ class SAC:
             obs=obs, acts=torch.zeros((1,) + tuple(self.venv.action_space.shape), device=dev),
             next_obs=obs, dones=zero, rews=zero,
         )
+        if self.is_host_env:
+            self.discard_pending_collection()
+            env_state = None
+            self._host_collector = rollout_mod.HostCollector(
+                self.venv, self._policy.sample_fn(), seed=self._seed
+            )
+        else:
+            env_state = self.venv.reset(generator)
         return SACState(
             actor=self.actor,
             critic=self.critic,
@@ -292,7 +318,7 @@ class SAC:
             actor_opt=common.make_optimizer(self.actor.parameters(), lr),
             critic_opt=common.make_optimizer(self.critic.parameters(), lr),
             alpha_opt=common.make_optimizer([self.log_alpha], lr),
-            env_state=self.venv.reset(generator),
+            env_state=env_state,
             buffer_state=self.replay.init_state(example),
             generator=generator,
         )
@@ -309,15 +335,67 @@ class SAC:
     # -- train step --------------------------------------------------------
     def train_step(self, state: SACState, reward_params: Any = None):
         """Collect ``train_freq`` steps, store them, run the updates."""
-        cfg = self.config
+        if self.is_host_env:
+            if self.config.overlap_collection:
+                return self.train_step_host_overlapped(state, reward_params)
+            return self.train_step_host(state, reward_params)
         with record_function("sac.collect"):
             env_state, chunk = rollout_mod.collect(
-                self.venv, self._policy.sample_fn(), state.env_state, cfg.train_freq, state.generator
+                self.venv, self._policy.sample_fn(), state.env_state, self.config.train_freq,
+                state.generator,
             )
-        n = cfg.train_freq * self.venv.num_envs
+        return self._process_chunk(state, env_state, chunk, reward_params)
+
+    def _host_collect(self) -> rollout_mod.RolloutChunk:
+        if self._host_collector is None:
+            raise RuntimeError("call init_state() first")
+        self._host_collector.refresh()
+        return self._host_collector.collect(self.config.train_freq)
+
+    def train_step_host(self, state: SACState, reward_params: Any = None):
+        """Host-env path: ``train_freq`` env steps through the host
+        collector, then the same store and updates on the device."""
+        with record_function("sac.host_collect"):
+            chunk = self._host_collect()
+        return self._process_chunk(state, None, chunk, reward_params)
+
+    def train_step_host_overlapped(self, state: SACState, reward_params: Any = None):
+        """Pipelined host-env path (``SACConfig.overlap_collection``): joins
+        the chunk collected during the previous round's updates, snapshots
+        the current (pre-update) actor synchronously, starts the next
+        collection from that snapshot on the collector's thread, then runs
+        this round's store and updates."""
+        if self._collect_pool is None:
+            self._collect_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="sac-host-collect"
+            )
+        if self._pending_chunk is None:
+            chunk = self._host_collect()
+        else:
+            with record_function("sac.collect_join"):
+                chunk = self._pending_chunk.result()
+            self._host_collector.refresh()
+        self._pending_chunk = self._collect_pool.submit(
+            self._host_collector.collect, self.config.train_freq
+        )
+        return self._process_chunk(state, None, chunk, reward_params)
+
+    def discard_pending_collection(self) -> None:
+        """Joins and drops any background collection (call after replacing
+        the actor's weights from outside, e.g. a warm start)."""
+        if self._pending_chunk is not None:
+            try:
+                self._pending_chunk.result()
+            finally:
+                self._pending_chunk = None
+
+    def _process_chunk(self, state: SACState, env_state: Optional[VecEnvState],
+                       chunk: rollout_mod.RolloutChunk, reward_params: Any):
+        """``_process`` over a ``[T, B]`` chunk's transitions."""
+        T, B = chunk.acts.shape[0], chunk.acts.shape[1]
 
         def flat(x):
-            return x.reshape((n,) + tuple(x.shape[2:]))
+            return x.reshape((T * B,) + tuple(x.shape[2:]))
 
         transitions = TransitionBatch(
             obs=flat(chunk.obs),
@@ -453,4 +531,5 @@ class SAC:
                 logger.dump(step=state.timesteps)
             if callback is not None:
                 callback(state, metrics)
+        self.discard_pending_collection()
         return state

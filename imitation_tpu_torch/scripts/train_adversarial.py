@@ -52,7 +52,8 @@ DEFAULT_CONFIG: Dict[str, Any] = {
         "clip_range": 0.2,
         "vf_coef": 0.5,
         "max_grad_norm": 0.5,
-        # Host envs only (not ported): PPO and SAC raise when it is set.
+        # Host envs only: the CLI's envs are device envs, where PPO and SAC
+        # raise when it is set.
         "overlap_collection": False,
     },
     "policy": {"hid_sizes": [32, 32], "normalize_features": False},

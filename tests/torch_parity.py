@@ -221,15 +221,22 @@ def _jax_sample_draws(k_sample, batch, size, n_expert, replay_idx, expert_idx):
     expert_idx.append(np.asarray(jax.random.randint(k_exp, (batch - half,), 0, n_expert)))
 
 
-def jax_sac_draws(key, *, train_freq, num_envs, act_dim, gradient_steps, batch, size, n_expert=None):
+def jax_sac_draws(key, *, train_freq, num_envs, act_dim, gradient_steps, batch, size, n_expert=None,
+                  host=False):
     """The draws of one SAC ``train_step`` from its state's key
     (imitation_tpu/rl/sac.py ``train_step`` and ``_process``): the collect's
     noise, then each update's next-action and policy noise, in the order the
     port asks for them; the replay (and SQIL expert) indices of each update;
-    and the key of the next step."""
-    key, k_roll = jax.random.split(key)
-    noise = [np.asarray(jax.random.normal(k, (num_envs, act_dim)))
-             for k in jax.random.split(k_roll, train_freq)]
+    and the key of the next step. With ``host``, those of ``train_step_host``:
+    the updates draw from ``k_proc`` (``key, k_proc = split(key)``) and the
+    collect's noise, the host collector's own, is left out (``jax_host_noise``)."""
+    if host:
+        _, key = jax.random.split(key)
+        noise = []
+    else:
+        key, k_roll = jax.random.split(key)
+        noise = [np.asarray(jax.random.normal(k, (num_envs, act_dim)))
+                 for k in jax.random.split(k_roll, train_freq)]
     update_keys = jax.random.split(key, gradient_steps + 1)
     replay_idx, expert_idx = [], []
     for k in update_keys[1:]:
@@ -240,17 +247,24 @@ def jax_sac_draws(key, *, train_freq, num_envs, act_dim, gradient_steps, batch, 
     return noise, replay_idx, expert_idx, update_keys[0]
 
 
-def jax_dqn_draws(key, *, train_freq, num_envs, n_actions, gradient_steps, batch, size, n_expert=None):
+def jax_dqn_draws(key, *, train_freq, num_envs, n_actions, gradient_steps, batch, size, n_expert=None,
+                  host=False):
     """The draws of one DQN ``train_step`` from its state's key
     (imitation_tpu/rl/dqn.py): each collect step's (uniforms of the epsilon
     test, random actions), the replay (and SQIL expert) indices of each
-    update, and the key of the next step."""
-    key, k_roll = jax.random.split(key)
-    explore = []
-    for step_key in jax.random.split(k_roll, train_freq):
-        _, k_eps, k_unif = jax.random.split(step_key, 3)
-        explore.append((np.asarray(jax.random.uniform(k_eps, (num_envs,))),
-                        np.asarray(jax.random.randint(k_unif, (num_envs,), 0, n_actions))))
+    update, and the key of the next step. With ``host``, those of
+    ``train_step_host``: the updates draw from ``k_proc`` and the collect's
+    draws, the host collector's own, are left out (``jax_host_explore``)."""
+    if host:
+        _, key = jax.random.split(key)
+        explore = []
+    else:
+        key, k_roll = jax.random.split(key)
+        explore = []
+        for step_key in jax.random.split(k_roll, train_freq):
+            _, k_eps, k_unif = jax.random.split(step_key, 3)
+            explore.append((np.asarray(jax.random.uniform(k_eps, (num_envs,))),
+                            np.asarray(jax.random.randint(k_unif, (num_envs,), 0, n_actions))))
     sample_keys = jax.random.split(key, gradient_steps + 1)
     replay_idx, expert_idx = [], []
     for k in sample_keys[1:]:
@@ -310,3 +324,31 @@ def jax_rollout_noise(key, num_steps, num_envs, act_dim):
     ``rollout.collect`` from ``key`` (``k_act, _ = split(step_key)``)."""
     return [np.asarray(jax.random.normal(jax.random.split(k)[0], (num_envs, act_dim)))
             for k in jax.random.split(key, num_steps)]
+
+
+def _jax_host_keys(seed, num_steps):
+    """The per-step keys of the JAX package's ``HostCollector`` seeded with
+    ``seed`` (imitation_tpu/data/rollout.py: ``key, k_act = split(key)``)."""
+    key, out = jax.random.key(seed), []
+    for _ in range(num_steps):
+        key, k_act = jax.random.split(key)
+        out.append(k_act)
+    return out
+
+
+def jax_host_noise(seed, num_steps, num_envs, act_dim):
+    """The Gaussian (or squashed-Gaussian) noise of ``num_steps`` steps of
+    the JAX package's ``HostCollector`` from ``seed``."""
+    return [np.asarray(jax.random.normal(k, (num_envs, act_dim))) for k in _jax_host_keys(seed, num_steps)]
+
+
+def jax_host_explore(seed, num_steps, num_envs, n_actions):
+    """The (uniforms of the epsilon test, random actions) of ``num_steps``
+    steps of the JAX DQN's host collector from ``seed``
+    (imitation_tpu/rl/dqn.py ``eps_greedy``: ``k_eps, k_unif = split(key)``)."""
+    out = []
+    for k in _jax_host_keys(seed, num_steps):
+        k_eps, k_unif = jax.random.split(k)
+        out.append((np.asarray(jax.random.uniform(k_eps, (num_envs,))),
+                    np.asarray(jax.random.randint(k_unif, (num_envs,), 0, n_actions))))
+    return out
