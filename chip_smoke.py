@@ -253,6 +253,28 @@ Phases, each timed and printed on its own line:
    Pendulum envs with ``exploration_frac`` 0.25 (the exploration wrapper's
    ``host_policy_fn``), 2 iterations, 4,096 timesteps, 60 comparisons: B1
    at [64, 16] once per PPO iteration. No kernel on phases 38-40.
+42. dp_gail: data-parallel training (``imitation_tpu_torch.parallel``).
+   GAIL ``train_fused`` at gail_cartpole's tuned widths (64 CartPole envs x
+   128 steps, PPO batch 128 = 64 minibatches x 5 epochs, demo batch 1024,
+   4 disc updates, 10 scripted demos), 2 of its 61 rounds: in one process
+   (and once more from weights nudged by one ulp, for the float32 floor),
+   then over 2 gloo ranks that share ``cuda:0``, started by the script
+   itself with torchrun's variables (``chip_smoke.py --dp-rank <dir>
+   <device>``) under a timeout: each rank steps 32 envs, runs B1 at
+   [128, 32] once a round and B2 4 times a round (asserted on each rank),
+   the ranks' generator and disc weights bitwise equal and within
+   ``max(1e-5, 4 x floor)`` of the largest update of the one-process run,
+   every rank's replay ring printed against the one-process ring; s per
+   round for W = 1 and W = 2 (two processes sharing one card: not a
+   scaling figure). Then the same run through ``initialize("nccl")`` at
+   world size 1, against the one-process run.
+43. dp_sac / dp_reward, on the same 2 ranks: SAC on 16 Pendulum-v1 envs
+   (train_freq 16, 16 updates of batch 256 a round, (256, 256) nets, 4
+   rounds, learning from the third) with the 4,096-row ring split (2,048
+   rows a rank, asserted), and one ``BasicRewardTrainer.train`` (batch 32,
+   3 epochs) on 250 synthetic comparisons with the batches split, each
+   held against its one-process run as above (the reward net's output
+   bias apart: its gradient is rounding noise).
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -291,7 +313,9 @@ airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
 bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
-cli_preference_pendulum, gail_host_pendulum, rlhf_host_pendulum) is driven with the kernels' launch counts set to 0 just
+cli_preference_pendulum, gail_host_pendulum, rlhf_host_pendulum, dp_gail_w1,
+dp_gail_w2_rank0, dp_gail_w2_rank1, dp_gail_nccl_w1; a rank counts its own
+launches and reports them) is driven with the kernels' launch counts set to 0 just
 before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
@@ -420,15 +444,17 @@ def check_kernels(torch, dev):
 
     # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
     # the RLHF CLI's, density's and the pixel tutorial's PPO iterations
-    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64))
+    timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64),
+             (128, 32))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl,
     # gail_pixel_cartpole), [256, 8] (airl_cli, airl_pixel_cartpole), [64, 32]
     # (rlhf_pendulum), [128, 8] (rlhf_active_pendulum), [64, 16]
     # (density_pendulum), [32, 8] (rlhf_pixel_cartpole) and [128, 64]
     # (cli_gail_cartpole; the CLI's other PPO paths run [256, 8] and
-    # [128, 8]); then the HalfCheetah path's, edge shapes and a large one.
-    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64))
+    # [128, 8]) and [128, 32] (each rank of dp_gail's two); then the
+    # HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64), (128, 32))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -479,6 +505,8 @@ def check_kernels(torch, dev):
         density=dict(gae_rows[(64, 16)], shape="[64, 16] f32 x5 -> x2"),
         rlhf_pixel=dict(gae_rows[(32, 8)], shape="[32, 8] f32 x5 -> x2"),
         gail_cartpole=dict(gae_rows[(128, 64)], shape="[128, 64] f32 x5 -> x2"),
+        dp_rank=dict(gae_rows[(128, 32)], shape="[128, 32] f32 x5 -> x2: one rank's columns of dp_gail's "
+                                                "[128, 64] over 2 ranks (timed alone, not under the ranks)"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -3148,6 +3176,337 @@ def rlhf_host_pendulum(dev):
         allow_variable_horizon=True, rng=0, seed=0, custom_logger=make_logger())
 
 
+# -- dp: data-parallel ranks ----------------------------------------------------------
+
+DP_WORLD = 2
+DP_ROUNDS = 2
+DP_LAUNCH_TIMEOUT_S = 300  # the launch of the ranks, start to join
+DP_GROUP_TIMEOUT = datetime.timedelta(seconds=120)  # any one collective
+DP_NUDGE = 1.2e-7  # about one float32 ulp of the weights: the floor's nudge
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dp_params(module):
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in module.named_parameters()}
+
+
+def dp_nudge(torch, modules, rel) -> None:
+    with torch.no_grad():
+        for m in modules:
+            for p in m.parameters():
+                p.mul_(1 + rel)
+
+
+def dp_gail(torch, dev, mesh=None, rel=0.0):
+    """GAIL ``train_fused`` at gail_cartpole's tuned widths (64 CartPole envs
+    x 128 steps, PPO batch 128 = 64 minibatches x 5 epochs, lr 1e-3, ent
+    0.01, a (32, 32) actor-critic, demo batch 1024, 4 disc updates, 10
+    scripted demos, the CLI's seed 0) for ``DP_ROUNDS`` rounds; over
+    ``mesh``'s ranks when given, every rank building the same trainer."""
+    from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+    from imitation_tpu_torch.rl.ppo import PPOConfig
+    from imitation_tpu_torch.testing import experts
+
+    demo_venv = make_vec_env("CartPole-v1", num_envs=10, device=dev)
+    demos = experts.generate_expert_trajectories("CartPole-v1", demo_venv, min_episodes=10, seed=0)
+    venv = make_vec_env("CartPole-v1", num_envs=64, device=dev)
+    trainer = GAIL(demonstrations=demos, venv=venv, demo_batch_size=1024, n_disc_updates_per_round=4,
+                   gen_config=PPOConfig(n_steps=128, n_minibatches=64, n_epochs=5, learning_rate=1e-3,
+                                        ent_coef=0.01),
+                   reward_net=BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=False),
+                   allow_variable_horizon=True, seed=0, custom_logger=make_logger())
+    trainer.gen_state = trainer.gen_algo.init_state()
+    dp_nudge(torch, [trainer.policy, trainer.reward_net], rel)
+    if mesh is not None:
+        mesh_mod.shard_adversarial_trainer(trainer, mesh)
+    init = {"policy": dp_params(trainer.policy), "disc": dp_params(trainer.reward_net)}
+    dp_sync(torch, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.train_fused(DP_ROUNDS * trainer.gen_train_timesteps, rounds_per_sync=DP_ROUNDS)
+    dp_sync(torch, dev)
+    s_round = (time.perf_counter() - t0) / DP_ROUNDS
+    launches = counts()
+    want = {"gae": DP_ROUNDS, "assemble_rows": DP_ROUNDS * trainer.n_disc_updates_per_round}
+    if launches != want:  # B1 once a round on the rank's columns, B2 once per disc step
+        raise AssertionError(f"dp_gail: launches {launches}, expected {want}")
+    ring = trainer._gen_buffer_state
+    return dict(init=init, policy=dp_params(trainer.policy), disc=dp_params(trainer.reward_net),
+                ring_obs=ring.data.obs.cpu().numpy(), ring_size=ring.size, launches=launches, s_round=s_round,
+                local_envs=trainer.gen_state.env_state.obs.shape[0], timesteps=trainer.gen_state.timesteps,
+                disc_step=trainer.disc_state.step, logged=trainer.logger.rows[-1])
+
+
+def dp_sac(torch, dev, mesh=None, rel=0.0, rounds=4):
+    """SAC on 16 Pendulum-v1 envs (train_freq 16, 16 gradient steps of batch
+    256 a round, (256, 256) nets, learning_starts 512, a 4,096-row ring):
+    ``rounds`` rounds, the last 3 learning; over ``mesh``'s ranks with the
+    ring split."""
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+    from imitation_tpu_torch.rl.sac import SAC, SACConfig
+
+    venv = make_vec_env("Pendulum-v1", num_envs=16, device=dev)
+    sac = SAC(venv, SACConfig(train_freq=16, gradient_steps=16, batch_size=256, learning_starts=512,
+                              buffer_size=4096), seed=0)
+    state = sac.init_state()
+    dp_nudge(torch, [sac.actor, sac.critic], rel)
+    if mesh is not None:
+        state = mesh_mod.shard_sac_state(state, mesh)
+    init = {"actor": dp_params(sac.actor), "critic": dp_params(sac.critic)}
+    local_rows = state.buffer_state.data.batch_size
+    zero_counts()
+    dp_sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        state, metrics = sac.train_step(state)
+    dp_sync(torch, dev)
+    return dict(init=init, actor=dp_params(sac.actor), critic=dp_params(sac.critic), local_rows=local_rows,
+                local_size=state.buffer_state.size, global_size=state.buffer_state.global_size,
+                timesteps=state.timesteps, launches=counts(), s_round=(time.perf_counter() - t0) / rounds,
+                critic_loss=float(metrics["critic_loss"]))
+
+
+def dp_reward(torch, dev, mesh=None, rel=0.0):
+    """One ``BasicRewardTrainer.train`` (batch 32, 3 epochs, lr 1e-3) of a
+    ``BasicRewardNet(normalize_input=True)`` on 250 synthetic comparisons of
+    Pendulum-shaped fragments of 50 steps (a trailing batch of 26: 16 pairs
+    on rank 0, 10 on rank 1); over ``mesh``'s ranks with the batches split."""
+    import types as pytypes
+
+    import numpy as np
+
+    from imitation_tpu_torch.algorithms import preference_comparisons as pc
+    from imitation_tpu_torch.data import types
+    from imitation_tpu_torch.envs.base import Space
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+    from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+    from imitation_tpu_torch.util.logger import configure
+
+    rng = np.random.default_rng(0)
+    trajs = [types.TrajectoryWithRew(obs=rng.normal(size=(201, 3)).astype(np.float32),
+                                     acts=rng.uniform(-2, 2, size=(200, 1)).astype(np.float32),
+                                     rews=rng.normal(size=200), infos=None, terminal=False) for _ in range(16)]
+    logger = configure(format_strs=())
+    fragments = pc.RandomFragmenter(rng=0, warning_threshold=0, custom_logger=logger)(trajs, 50, 250)
+    dataset = pc.PreferenceDataset()
+    dataset.push(fragments, pc.SyntheticGatherer(rng=0, custom_logger=logger)(fragments))
+    obs_space = Space.box(np.array([-1, -1, -8], np.float32), np.array([1, 1, 8], np.float32), (3,))
+    net = BasicRewardNet(obs_space, Space.box(-2.0, 2.0, (1,)), normalize_input=True).to(dev)
+    net.init(torch.Generator(device=dev).manual_seed(0))
+    dp_nudge(torch, [net], rel)
+    trainer = pc.BasicRewardTrainer(pc.PreferenceModel(net), rng=0, batch_size=32, epochs=3, lr=1e-3,
+                                    custom_logger=logger)
+    if mesh is not None:
+        mesh_mod.shard_preference_comparisons(
+            pytypes.SimpleNamespace(reward_trainer=trainer, trajectory_generator=None), mesh)
+    init = dp_params(net)
+    zero_counts()
+    metrics = trainer.train(dataset)
+    dp_sync(torch, dev)
+    return dict(init={"net": init}, net=dp_params(net), metrics=dict(metrics), launches=counts())
+
+
+def dp_floor(exact, nudged, key, skip=()):
+    """How far a one-ulp nudge of the initial weights moves the update of
+    ``key``, relative to its largest entry (tests/torch_parity.py's
+    ``update_floors``, one nudge)."""
+    keys = [k for k in exact[key] if k not in skip]
+    upd = {k: exact[key][k] - exact["init"][key][k] for k in keys}
+    scale = max(abs(v).max() for v in upd.values())
+    return max(abs(nudged[key][k] - nudged["init"][key][k] - upd[k]).max() for k in keys) / scale
+
+
+def dp_close(phase, what, got, want, key, floor, skip=()):
+    """``got``'s ``key`` parameters within ``max(1e-5, 4 x floor)`` of the
+    largest update of ``want``'s (tests/torch_parity.py's
+    ``param_tolerance``)."""
+    keys = [k for k in want[key] if k not in skip]
+    upd = max(abs(want[key][k] - want["init"][key][k]).max() for k in keys)
+    err = max(abs(got[key][k] - want[key][k]).max() for k in keys)
+    tol = max(1e-5, 4 * floor)
+    log(phase, f"{what} {key}: max abs diff {err:.3g}, {err / upd:.3g} of the largest update {upd:.3g} "
+               f"(limit {tol:.3g}; float32 floor {floor:.3g})")
+    if not (upd > 0 and err <= tol * upd):
+        raise AssertionError(f"{phase}: {what} {key} off by {err:.3g} against an update of {upd:.3g}")
+
+
+def dp_equal_ranks(phase, ranks, key):
+    for r, res in enumerate(ranks[1:], 1):
+        for k, v in ranks[0][key].items():
+            if not (res[key][k] == v).all():
+                raise AssertionError(f"{phase}: rank {r}'s {key}.{k} differs from rank 0's")
+
+
+def dp_rank_main(out_dir: str, device: str) -> int:
+    """One rank of the dp phase (``chip_smoke.py --dp-rank <dir> <device>``,
+    started with torchrun's variables): joins the gloo group on ``device``
+    (every rank on the one card), runs GAIL, SAC and the reward trainer over
+    the mesh and writes its results to ``<dir>/rank<r>.pt``."""
+    import torch
+
+    from imitation_tpu_torch.ops import kernels
+    from imitation_tpu_torch.parallel import distributed
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = distributed.initialize("gloo", device=device, timeout=DP_GROUP_TIMEOUT)
+    if dev.type == "cuda":
+        kernels.load()  # the parent's build, found by its hash
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_mod.make_mesh()
+    out = {"gail": dp_gail(torch, dev, mesh)}
+    out["sac"] = dp_sac(torch, dev, mesh)
+    out["reward"] = dp_reward(torch, dev, mesh)
+    for key in ("sac", "reward"):
+        if out[key]["launches"] != {"gae": 0, "assemble_rows": 0}:
+            raise AssertionError(f"dp_{key}: kernel launches {out[key]['launches']} on a path without either")
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    distributed.shutdown()
+    return 0
+
+
+def dp_launch(torch, phase, out_dir, dev):
+    """Starts ``DP_WORLD`` ranks of this script with torchrun's variables and
+    waits for them (``DP_LAUNCH_TIMEOUT_S`` in all; every rank is killed
+    when one fails or time runs out). Returns each rank's results."""
+    port = free_port()
+    procs = []
+    for rank in range(DP_WORLD):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", out_dir, str(dev)],
+                                      cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.perf_counter() + DP_LAUNCH_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.strip().splitlines()[-40:]:
+            log(f"{phase}/rank{rank}", line)
+        if p.returncode != 0:
+            raise AssertionError(f"{phase}: rank {rank} exited {p.returncode}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+
+
+def run_dp(torch, dev):
+    """Data-parallel training (``imitation_tpu_torch.parallel``): GAIL
+    ``train_fused`` at gail_cartpole's widths in one process, then over
+    ``DP_WORLD`` gloo ranks sharing the card (ranks bitwise equal, within
+    tolerance of the one-process run, B1 and B2 counted on each rank), SAC
+    with the split ring and one reward-trainer ``train`` against their
+    one-process runs, and GAIL again through ``initialize`` at world size 1
+    (NCCL on the card; gloo where ``dev`` is the CPU, for a rehearsal).
+    Returns the launch counts of the driven paths."""
+    from imitation_tpu_torch.parallel import distributed
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+
+    phase = "dp_gail"
+    log(phase, f"cut: {DP_ROUNDS} rounds of gail_cartpole.json's 500,000 timesteps (61); widths as tuned")
+    paths = {}
+    one = dp_gail(torch, dev)
+    paths["dp_gail_w1"] = one["launches"]
+    floors = {k: dp_floor(one, dp_gail(torch, dev, rel=DP_NUDGE), k) for k in ("policy", "disc")}
+    log(phase, f"W=1: {one['s_round']:.3f} s per round (one process alone on the card); launches "
+               f"{one['launches']}; logged gen/loss {one['logged']['mean/gen/loss']:.4g}, "
+               f"disc/disc_loss {one['logged']['mean/disc/disc_loss']:.4g}")
+    one_sac = dp_sac(torch, dev)
+    sac_floors = {k: dp_floor(one_sac, dp_sac(torch, dev, rel=DP_NUDGE), k) for k in ("actor", "critic")}
+    one_rew = dp_reward(torch, dev)
+    bias = [k for k in one_rew["net"] if k.endswith("dense_out.bias")]
+    rew_floor = dp_floor(one_rew, dp_reward(torch, dev, rel=DP_NUDGE), "net", bias)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="itt_dp_") as out_dir:
+        ranks = dp_launch(torch, phase, out_dir, dev)
+    log(phase, f"{DP_WORLD} gloo ranks on {dev}: launched, ran GAIL, SAC and the reward trainer and joined "
+               f"in {time.perf_counter() - t0:.2f} s")
+    gail = [r["gail"] for r in ranks]
+    for r, res in enumerate(gail):
+        paths[f"dp_gail_w{DP_WORLD}_rank{r}"] = res["launches"]
+        if res["local_envs"] != 64 // DP_WORLD or res["timesteps"] != one["timesteps"]:
+            raise AssertionError(f"{phase}: rank {r} stepped {res['local_envs']} envs, {res['timesteps']} steps")
+    for key in ("policy", "disc"):
+        dp_equal_ranks(phase, gail, key)
+        dp_close(phase, f"W={DP_WORLD} against W=1:", gail[0], one, key, floors[key])
+    same_ring = all((g["ring_obs"] == one["ring_obs"]).all() for g in gail)
+    log(phase, f"ranks bitwise equal (policy, disc); every rank's replay ring "
+               f"{'equal to' if same_ring else 'differs from'} the one-process ring "
+               f"({one['ring_size']} rows); B1 at [128, {64 // DP_WORLD}] and B2 per rank: "
+               f"{[g['launches'] for g in gail]}")
+    per_rank = ", ".join(f"{g['s_round']:.3f}" for g in gail)
+    log(phase, f"s per round: W=1 {one['s_round']:.3f} (one process alone on the card), W={DP_WORLD} "
+               f"{per_rank} (ranks 0, 1: {DP_WORLD} processes sharing one card over gloo; not a scaling figure)")
+
+    phase = "dp_sac"
+    sac = [r["sac"] for r in ranks]
+    for r, res in enumerate(sac):
+        if res["local_rows"] != 4096 // DP_WORLD or res["global_size"] != one_sac["global_size"]:
+            raise AssertionError(f"{phase}: rank {r} holds {res['local_rows']} ring rows, "
+                                 f"global fill {res['global_size']}")
+    for key in ("actor", "critic"):
+        dp_equal_ranks(phase, sac, key)
+        dp_close(phase, f"W={DP_WORLD} against W=1:", sac[0], one_sac, key, sac_floors[key])
+    log(phase, f"ring split: {sac[0]['local_rows']} of 4096 rows a rank, {sac[0]['local_size']} filled of "
+               f"{sac[0]['global_size']}; s per round W=1 {one_sac['s_round']:.3f}, W={DP_WORLD} "
+               f"{sac[0]['s_round']:.3f} (two processes sharing one card); critic_loss "
+               f"{sac[0]['critic_loss']:.4g} vs {one_sac['critic_loss']:.4g}")
+
+    phase = "dp_reward"
+    rew = [r["reward"] for r in ranks]
+    dp_equal_ranks(phase, rew, "net")
+    dp_close(phase, f"W={DP_WORLD} against W=1:", rew[0], one_rew, "net", rew_floor, bias)
+    for res in (rew[0], one_rew):  # the output bias: rounding noise that Adam turns into steps of lr
+        moved = max(abs(res["net"][k] - res["init"]["net"][k]).max() for k in bias)
+        if moved > 1e-3 * 24 * (1 + 1e-5):
+            raise AssertionError(f"{phase}: the output bias moved {moved:.3g}, more than lr per step")
+    for k, v in one_rew["metrics"].items():
+        if not math.isclose(rew[0]["metrics"][k], v, rel_tol=1e-4, abs_tol=1e-5):
+            raise AssertionError(f"{phase}: metric {k} {rew[0]['metrics'][k]} vs {v}")
+    log(phase, "metrics " + ", ".join(f"{k} {v:.4g}" for k, v in rew[0]["metrics"].items()))
+
+    backend_w1 = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    phase = f"dp_gail_{backend_w1}"
+    distributed.initialize(backend_w1, rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           device=dev, timeout=DP_GROUP_TIMEOUT)
+    try:
+        mesh = mesh_mod.make_mesh()
+        w1 = dp_gail(torch, dev, mesh)
+    finally:
+        distributed.shutdown()
+    paths[f"dp_gail_{backend_w1}_w1"] = w1["launches"]
+    for key in ("policy", "disc"):
+        dp_close(phase, "world size 1 against one process:", w1, one, key, floors[key])
+    bitwise = all((w1[key][k] == one[key][k]).all() for key in ("policy", "disc") for k in one[key])
+    log(phase, f"initialize('{backend_w1}') at world size 1: mesh {mesh.shape}, launches {w1['launches']}, "
+               f"{w1['s_round']:.3f} s per round; {'bitwise equal to' if bitwise else 'within tolerance of'} "
+               f"the one-process run")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3357,6 +3716,14 @@ def main() -> int:
     log("rlhf_host_pendulum", f"done in {time.perf_counter() - t0:.2f} s")
     log("host", f"the host-env phases took {time.perf_counter() - t_host:.2f} s")
 
+    # Data-parallel training: GAIL train_fused at gail_cartpole's widths in one
+    # process, over 2 gloo ranks sharing the card (B1 at [128, 32] once a
+    # round and B2 4 times a round on each) and through NCCL at world size 1;
+    # SAC with the split ring and the reward trainer over the 2 ranks.
+    t0 = time.perf_counter()
+    paths.update(run_dp(torch, dev))
+    log("dp", f"the dp phases took {time.perf_counter() - t0:.2f} s")
+
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}
         e["launches"] = sum(e["paths"].values())
@@ -3372,4 +3739,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":  # one rank of the dp phase
+        sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

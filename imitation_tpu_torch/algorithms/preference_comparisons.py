@@ -53,6 +53,7 @@ from imitation_tpu_torch.algorithms import base
 from imitation_tpu_torch.data import rollout as rollout_mod
 from imitation_tpu_torch.data import types
 from imitation_tpu_torch.envs.vector import VectorEnv
+from imitation_tpu_torch.parallel import distributed
 from imitation_tpu_torch.policies.exploration_wrapper import ExplorationWrapper
 from imitation_tpu_torch.rewards.reward_nets import NormalizedRewardNet, RewardEnsemble, RewardNet
 from imitation_tpu_torch.rl import common as rl_common
@@ -829,6 +830,9 @@ class BasicRewardTrainer(RewardTrainer):
             regularizer_factory(optimizer=self.optimizer, logger=self.logger)
             if regularizer_factory is not None else None
         )
+        # parallel.mesh.shard_preference_comparisons sets this: each update's
+        # pairs are split over the data-parallel ranks on their sample axis.
+        self.batch_sharding = None
 
     @property
     def device(self) -> torch.device:
@@ -837,8 +841,28 @@ class BasicRewardTrainer(RewardTrainer):
     def _lambda(self) -> float:
         return self.regularizer.lambda_ if self.regularizer is not None else 0.0
 
+    def _share(self, sl: FragmentBatch, axis: int) -> Tuple[FragmentBatch, int]:
+        """This rank's block of a slice of at most ``minibatch_size`` pairs
+        and its pair count. The slice is split as if padded to
+        ``minibatch_size`` pairs; a rank whose block is all padding gets one
+        real pair with weight 0 (count 0), as the JAX trainer's zero-weight
+        padding rows."""
+        mesh = self.batch_sharding.mesh
+        c = self.minibatch_size // mesh.dp
+        k = sl.prefs.shape[-1]
+        lo, hi = min(mesh.rank * c, k), min((mesh.rank + 1) * c, k)
+        if lo == hi:
+            return sl.map(lambda x: x.narrow(axis, 0, 1)), 0
+        return sl.map(lambda x: x.narrow(axis, lo, hi - lo)), hi - lo
+
+    def _reduce(self, params: List[torch.Tensor], extra: torch.Tensor) -> None:
+        """Sums the gradients and ``extra`` (in place) over the data-parallel ranks."""
+        distributed.all_reduce_grads_(params, self.batch_sharding.mesh, [extra], average=False)
+
     def _update(self, batch: FragmentBatch, lam: float) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` (at most ``batch_size`` pairs)."""
+        """One optimizer step on ``batch`` (at most ``batch_size`` pairs);
+        on a data-parallel rank the loss of its share, with the gradients
+        and metric sums added over the ranks."""
         params = list(self.preference_model.model.parameters())
         self.optimizer.zero_grad()
         n = batch.num_pairs
@@ -846,10 +870,17 @@ class BasicRewardTrainer(RewardTrainer):
         for start in range(0, n, self.minibatch_size):
             sl = batch.map(lambda x: x[start:start + self.minibatch_size])
             k = sl.num_pairs
+            if self.batch_sharding is not None:
+                sl, k = self._share(sl, 0)
             out = self.loss(self.preference_model, sl)
             (out.loss * k / self.batch_size).backward()
             for name, v in {**out.metrics, "loss": out.loss}.items():
                 sums[name] = sums.get(name, 0.0) + v.detach() * k
+        if self.batch_sharding is not None:
+            names = list(sums)
+            stacked = torch.stack([sums[k] for k in names])
+            self._reduce(params, stacked)
+            sums = dict(zip(names, stacked.unbind(0)))
         if self.regularizer is not None:
             (lam * self.regularizer.loss_penalty(params)).backward()
         self.optimizer.step()
@@ -935,24 +966,33 @@ class EnsembleTrainer(BasicRewardTrainer):
         self.num_members = preference_model.model.num_members
 
     def _update(self, batch: FragmentBatch, lam: float) -> Dict[str, torch.Tensor]:
-        """One step on a bagged batch (fields ``[M, b, ...]``)."""
+        """One step on a bagged batch (fields ``[M, b, ...]``); on a
+        data-parallel rank the loss of its share of each slice's pairs, with
+        the gradients and each slice's per-member sums added over the
+        ranks."""
         params = list(self.preference_model.model.parameters())
         self.optimizer.zero_grad()
         b = batch.num_pairs
         sums: Dict[str, torch.Tensor] = {}
+        slices = []  # (pairs, per-member BCE sums, per-member correct counts)
         for start in range(0, b, self.minibatch_size):
             sl = batch.map(lambda x: x[:, start:start + self.minibatch_size])
-            k = sl.num_pairs
+            k = k_all = sl.num_pairs
+            if self.batch_sharding is not None:
+                sl, k = self._share(sl, 1)
             probs = self.preference_model.probability_from_rewards(
                 self.preference_model.member_fragment_rewards(sl))  # [M, k]
-            per_member = _bce(probs, sl.prefs).sum(dim=1) / k
-            acc_m = ((probs > 0.5) == (sl.prefs > 0.5)).float().sum(dim=1) / k
+            per_member = _bce(probs, sl.prefs).sum(dim=1) / max(k, 1)
+            acc_m = ((probs > 0.5) == (sl.prefs > 0.5)).float().sum(dim=1) / max(k, 1)
             total = per_member.mean() * k / self.batch_size
             if lam:
                 l2 = sum(torch.sum(torch.square(p)) for p in params)
                 total = total + lam * l2 * float(np.float32(k) / np.float32(b))
             total.backward()
             with torch.no_grad():
+                if self.batch_sharding is not None:
+                    slices.append((k_all, per_member * k, acc_m * k))
+                    continue
                 metrics = {
                     "accuracy": acc_m.mean(),
                     "accuracy_std": acc_m.std(unbiased=False),
@@ -961,6 +1001,17 @@ class EnsembleTrainer(BasicRewardTrainer):
                 }
             for name, v in metrics.items():
                 sums[name] = sums.get(name, 0.0) + v * k
+        if self.batch_sharding is not None:
+            stacked = torch.stack([torch.stack(sl[1:]) for sl in slices])  # [S, 2, M]
+            self._reduce(params, stacked)
+            with torch.no_grad():
+                for (k, _, _), (bce_sum, correct) in zip(slices, stacked.unbind(0)):
+                    per_member, acc_m = bce_sum / k, correct / k
+                    for name, v in (("accuracy", acc_m.mean()),
+                                    ("accuracy_std", acc_m.std(unbiased=False)),
+                                    ("loss", per_member.mean()),
+                                    ("loss_std", per_member.std(unbiased=False))):
+                        sums[name] = sums.get(name, 0.0) + v * k
         self.optimizer.step()
         return {name: v / b for name, v in sums.items()}
 

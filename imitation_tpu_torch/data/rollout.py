@@ -31,6 +31,7 @@ import torch
 from imitation_tpu_torch import make_generator
 from imitation_tpu_torch.data import types
 from imitation_tpu_torch.envs.vector import VecEnvState, VectorEnv
+from imitation_tpu_torch.parallel import distributed
 
 # A rollout policy: (obs[B, ...], generator) -> (acts[B, ...], aux dict).
 PolicyApply = Callable[[torch.Tensor, torch.Generator], Tuple[torch.Tensor, Any]]
@@ -90,13 +91,17 @@ def collect(
     """Steps ``num_steps`` of policy+env interaction on the env's device.
 
     ``next_obs`` at done steps is the *terminal* observation, so reward
-    relabelling over the chunk sees the true (s, a, s', done) tuples.
+    relabelling over the chunk sees the true (s, a, s', done) tuples. Over a
+    data-parallel rank's view (``VectorEnv.rows``) the policy's draws are
+    that rank's block of the whole batch's.
     """
     recs: Dict[str, List[torch.Tensor]] = {k: [] for k in CHUNK_FIELDS}
     aux_recs: List[Any] = []
+    mesh = getattr(venv, "mesh", None)  # a data-parallel rank's view (VectorEnv.rows)
     for _ in range(num_steps):
         obs = state.obs
-        acts, aux = policy_apply(obs, generator)
+        with distributed.local_rows(mesh):
+            acts, aux = policy_apply(obs, generator)
         state, out = venv.step(state, acts)
         for k, v in (("obs", obs), ("acts", acts), ("rews", out.reward),
                      ("next_obs", out.terminal_obs), ("terminated", out.terminated),
@@ -140,7 +145,10 @@ class HostCollector:
     place on ``venv.device`` meanwhile, so a collection running on another
     thread reads only the snapshot. Other policies (scripted experts,
     ``host_stateful`` ones) are host functions and are called as they are.
-    Draws come from the collector's own CPU generator, seeded with ``seed``.
+    Draws come from the collector's own CPU generator, seeded with ``seed``;
+    with ``mesh`` set (a data-parallel rank whose host env is its block of
+    the envs, ``parallel.distributed.local_env_count``) they are that
+    block of the whole batch's draws.
     ``collect`` stacks each field in numpy and copies it to ``venv.device``
     (or ``device``) once.
     """
@@ -149,6 +157,7 @@ class HostCollector:
         self.venv = venv
         self._source: Optional[torch.nn.Module] = None
         self._snapshot: Optional[torch.nn.Module] = None
+        self.mesh = None
         self.set_policy(policy_apply)
         self.reseed(seed)
 
@@ -180,7 +189,7 @@ class HostCollector:
         recs: Dict[str, List[np.ndarray]] = {k: [] for k in CHUNK_FIELDS}
         aux_recs: List[Dict[str, np.ndarray]] = []
         for _ in range(num_steps):
-            with torch.inference_mode():
+            with torch.inference_mode(), distributed.local_rows(self.mesh):
                 acts, aux = self._apply(torch.from_numpy(self.obs), self.generator)
                 acts = acts.numpy() if isinstance(acts, torch.Tensor) else np.asarray(acts)
                 aux = {k: v.numpy() for k, v in aux.items()}

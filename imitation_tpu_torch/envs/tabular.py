@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from imitation_tpu_torch.envs.base import Env, Space, TimeStep
+from imitation_tpu_torch.parallel import distributed
 
 
 def _tabular_uniforms(n: int, generator: torch.Generator) -> torch.Tensor:
@@ -116,7 +117,9 @@ class TabularMDP(Env):
             raise ValueError("TabularMDP.step draws the next state and needs a generator")
         m = self.tensors(state.device)
         cdf = m["T_cdf"][state[:, 0], action.long()]  # [B, S]
-        s_next = _inverse_cdf(cdf, _tabular_uniforms(state.shape[0], generator))
+        # A data-parallel rank's rows take their block of the whole batch's draw.
+        u = distributed.draw_rows(lambda shape: _tabular_uniforms(shape[0], generator), (state.shape[0],))
+        s_next = _inverse_cdf(cdf, u)
         new_state = torch.stack([s_next, state[:, 1] + 1], dim=-1)
         f = torch.zeros((state.shape[0],), dtype=torch.bool, device=state.device)
         return new_state, TimeStep(obs=self.obs_of(new_state), reward=m["R"][s_next],

@@ -27,6 +27,7 @@ import torch
 
 from imitation_tpu_torch import Device, default_device
 from imitation_tpu_torch.envs.base import Env, Space
+from imitation_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -78,6 +79,29 @@ class VectorEnv:
             max_episode_steps if max_episode_steps is not None else env.max_episode_steps
         )
         self.device = default_device(device)
+        self.mesh = None  # set on a rank's view (``rows``)
+        self.global_num_envs = num_envs
+
+    def rows(self, mesh) -> "VectorEnv":
+        """The view of ``mesh``'s rank: its block of the envs (module
+        docstring)."""
+        mesh.rows(self.num_envs)  # raises where the envs do not divide
+        view = VectorEnv(self.env, self.num_envs // mesh.dp, self.max_episode_steps, self.device)
+        view.mesh, view.global_num_envs = mesh, self.num_envs
+        return view
+
+    def _reset_rows(self, generator: torch.Generator):
+        """Fresh episodes for this env's rows: a rank's view draws the whole
+        batch's and keeps its block."""
+        obs, state = self.env.reset(self.global_num_envs, generator)
+        if self.mesh is not None:
+            rows = self.mesh.rows(self.global_num_envs)
+
+            def take(x):
+                return {k: v[rows] for k, v in x.items()} if isinstance(x, dict) else x[rows]
+
+            obs, state = take(obs), take(state)
+        return obs, state
 
     @property
     def observation_space(self) -> Space:
@@ -92,7 +116,7 @@ class VectorEnv:
             raise ValueError(
                 f"generator on {generator.device}, env on {self.device}"
             )
-        obs, env_state = self.env.reset(self.num_envs, generator)
+        obs, env_state = self._reset_rows(generator)
         B = self.num_envs
         return VecEnvState(
             env_state=env_state,
@@ -103,7 +127,8 @@ class VectorEnv:
         )
 
     def step(self, state: VecEnvState, actions: torch.Tensor) -> Tuple[VecEnvState, VecStep]:
-        new_env_state, ts = self.env.step(state.env_state, actions, state.generator)
+        with distributed.local_rows(self.mesh):
+            new_env_state, ts = self.env.step(state.env_state, actions, state.generator)
         t = state.t + 1
         truncated = ts.truncated
         if self.max_episode_steps is not None:
@@ -115,7 +140,7 @@ class VectorEnv:
 
         # Auto-reset the finished envs (all B reset states are drawn, as in
         # the JAX engine, and selected where done).
-        reset_obs, reset_state = self.env.reset(self.num_envs, state.generator)
+        reset_obs, reset_state = self._reset_rows(state.generator)
         next_env_state = _where_rows(done, reset_state, new_env_state)
         next_obs = _where_rows(done, reset_obs, ts.obs)
 

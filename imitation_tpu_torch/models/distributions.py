@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from imitation_tpu_torch.parallel import distributed
+
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_2 = math.log(2.0)
 
@@ -24,6 +26,13 @@ def _standard_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """Standard-normal noise of a Gaussian or squashed-Gaussian sample, on
     the generator's device (tests substitute the JAX package's draws)."""
     return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def _noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """``_standard_normal`` for a batch of rows: a data-parallel rank's rows
+    (``parallel.distributed.local_rows``) take their block of the whole
+    batch's draw."""
+    return distributed.draw_rows(lambda s: _standard_normal(s, generator), shape)
 
 
 @dataclasses.dataclass
@@ -42,8 +51,9 @@ class Categorical:
 
     def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Gumbel-max sampling, as ``jax.random.categorical`` does."""
-        u = torch.rand(
-            self.logits.shape, generator=generator, device=self.logits.device
+        u = distributed.draw_rows(
+            lambda s: torch.rand(s, generator=generator, device=self.logits.device),
+            self.logits.shape,
         ).clamp_(min=torch.finfo(torch.float32).tiny)
         return torch.argmax(self.logits - torch.log(-torch.log(u)), dim=-1)
 
@@ -80,7 +90,7 @@ class DiagGaussian:
         if generator is None:
             eps = torch.randn(self.mean.shape, device=self.mean.device)
         else:
-            eps = _standard_normal(tuple(self.mean.shape), generator)
+            eps = _noise(tuple(self.mean.shape), generator)
         return self.mean + eps * torch.exp(self._lstd())
 
     def mode(self) -> torch.Tensor:
@@ -108,7 +118,7 @@ class SquashedGaussian:
         """(tanh(mean + eps*std), log-prob): the base log-prob taken from
         the noise ``eps``, less the tanh correction."""
         lstd = self.log_std.expand_as(self.mean)
-        eps = _standard_normal(tuple(self.mean.shape), generator)
+        eps = _noise(tuple(self.mean.shape), generator)
         pre = self.mean + eps * torch.exp(lstd)
         base_lp = (-0.5 * (eps * eps + _LOG_2PI) - lstd).sum(dim=-1)
         return torch.tanh(pre), base_lp - _tanh_log_det(pre)

@@ -15,6 +15,8 @@ Port of ``imitation_tpu/models/networks.py``:
   statistics outright; ``EMANorm``: bias-corrected exponential moving
   averages of the moments. With ``members=M`` a layer keeps M independent
   sets of statistics (``[M, F]``), as ``nn.vmap`` over members does.
+  Inside ``parallel.distributed.local_rows`` (a data-parallel rank's rows)
+  an update folds the moments of every rank's rows together.
 * ``StackedMLP``: M MLPs of one shape whose layers are stacked ``[M, in,
   out]`` and evaluated for all members in one batched product per layer
   (the members of a ``RewardEnsemble``).
@@ -38,6 +40,8 @@ from typing import Callable, Optional, Sequence, Tuple, Type
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from imitation_tpu_torch.parallel import distributed
 
 # Std of a standard normal truncated to [-2, 2] (flax's variance_scaling).
 _TRUNC_STD = 0.87962566103423978
@@ -158,9 +162,8 @@ class RunningNorm(NormLayer):
     @torch.no_grad()
     def update(self, x: torch.Tensor) -> None:
         b = self._rows(x)
-        b_count = b.shape[-2]
-        b_mean = b.mean(dim=-2)
-        b_var = b.var(dim=-2, unbiased=False)
+        # The global batch's moments on a data-parallel rank's rows.
+        b_count, b_mean, b_var = distributed.row_moments(b)
         count = self.count[..., None]
         total = count + b_count
         denom = torch.clamp(total, min=1)
@@ -203,8 +206,8 @@ class EMANorm(NormLayer):
     def update(self, x: torch.Tensor) -> None:
         b = self._rows(x)
         d = self.decay
-        self.raw_mean.copy_(d * self.raw_mean + (1 - d) * b.mean(dim=-2))
-        self.raw_sq.copy_(d * self.raw_sq + (1 - d) * (b * b).mean(dim=-2))
+        self.raw_mean.copy_(d * self.raw_mean + (1 - d) * distributed.row_mean(b))
+        self.raw_sq.copy_(d * self.raw_sq + (1 - d) * distributed.row_mean(b * b))
         self.count.add_(1)
         correction = 1.0 - torch.pow(d, self.count[..., None].float())  # float32, as in JAX
         corr_mean = self.raw_mean / correction

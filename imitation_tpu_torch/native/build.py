@@ -56,7 +56,7 @@ def build_library() -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     c = ctypes
     lib.engine_create.restype = c.c_void_p
-    lib.engine_create.argtypes = [c.c_int, c.c_int, c.c_int, c.c_int, c.c_uint64, c.c_int]
+    lib.engine_create.argtypes = [c.c_int, c.c_int, c.c_int, c.c_int, c.c_uint64, c.c_int, c.c_int]
     lib.engine_destroy.argtypes = [c.c_void_p]
     for fn in ("engine_obs_dim", "engine_act_dim", "engine_n_actions"):
         getattr(lib, fn).restype = c.c_int

@@ -11,6 +11,12 @@ of numpy arrays (``obs``, ``terminal_obs``, ``reward``, ``terminated``,
 
 ``device`` is where the learners and the collected chunks live (the env
 itself steps on the host): CUDA unless the caller passes ``device="cpu"``.
+
+``first_env`` makes the envs those from index ``first_env`` on of a larger
+batch with the same seed: a data-parallel rank builds
+``CppVectorEnv(name, local_env_count(B), seed=s, first_env=rank * B // W)``
+and steps exactly its block of the one-process ``CppVectorEnv(name, B,
+seed=s)``.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ class CppVectorEnv:
         seed: int = 0,
         num_threads: Optional[int] = None,
         device: Optional[Device] = None,
+        first_env: int = 0,
     ):
         from imitation_tpu_torch.native.build import load_library
 
@@ -77,7 +84,8 @@ class CppVectorEnv:
         self.num_threads = num_threads
         self.num_envs = num_envs
         self._handle = self._lib.engine_create(
-            env_type, num_envs, max_episode_steps or 0, int(fixed_horizon), seed, num_threads
+            env_type, num_envs, max_episode_steps or 0, int(fixed_horizon), seed, num_threads,
+            first_env,
         )
         self.observation_space, self.action_space = _SPACES[env_type]
         self._obs_dim = self._lib.engine_obs_dim(self._handle)

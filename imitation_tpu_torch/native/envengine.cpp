@@ -240,8 +240,12 @@ void parallel_for(int n, int n_threads, const std::function<void(int, int)>& fn)
 
 extern "C" {
 
+// Env i draws its generator's seed from the (first_env + i)-th output of
+// the seeder: a data-parallel rank's block of a larger batch passes the
+// index of its first env and steps those envs exactly.
 void* engine_create(int env_type, int num_envs, int max_episode_steps,
-                    int fixed_horizon, uint64_t seed, int n_threads) {
+                    int fixed_horizon, uint64_t seed, int n_threads,
+                    int first_env) {
   auto* e = new Engine();
   e->env_type = env_type;
   e->num_envs = num_envs;
@@ -254,6 +258,7 @@ void* engine_create(int env_type, int num_envs, int max_episode_steps,
   e->ep_return.assign(num_envs, 0.0);
   e->rngs.reserve(num_envs);
   std::mt19937_64 seeder(seed);
+  seeder.discard(static_cast<unsigned long long>(first_env > 0 ? first_env : 0));
   for (int i = 0; i < num_envs; ++i) e->rngs.emplace_back(static_cast<uint32_t>(seeder()));
   e->n_threads = n_threads > 0 ? n_threads : 1;
   return e;

@@ -11,6 +11,11 @@ module and optimizer objects and the host-side counters.
 order of operations, so parity with the JAX learners is tight. Its learning
 rate is a constant or a schedule of the update count (``linear_schedule``,
 ``optax.linear_schedule``'s values).
+
+Over data-parallel ranks a learner reduces the gradients over the ranks
+(``parallel.distributed.all_reduce_grads_``) before ``Adam.step``, which
+clips by the global norm of what it reads: clipping each rank's gradients
+first would give another step.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ class RLState:
     timesteps: int = 0  # total env steps taken
     n_updates: int = 0
     reward_norm: Optional[RewNormState] = None
+    # The data-parallel mesh the state is split over (parallel.mesh.
+    # shard_rl_state): env_state then holds this rank's env rows.
+    mesh: Optional[Any] = None
 
     def replace(self, **changes) -> "RLState":
         return dataclasses.replace(self, **changes)

@@ -43,6 +43,7 @@ from imitation_tpu_torch.data import rollout as rollout_mod
 from imitation_tpu_torch.envs.vector import VectorEnv
 from imitation_tpu_torch.models.policies import ActorCriticPolicy
 from imitation_tpu_torch.ops.gae import gae
+from imitation_tpu_torch.parallel import distributed
 from imitation_tpu_torch.rl import common
 
 
@@ -175,9 +176,10 @@ class PPO:
             if self.config.overlap_collection:
                 return self.train_step_host_overlapped(state, reward_params)
             return self.train_step_host(state, reward_params)
+        venv = self.venv if state.mesh is None else self.venv.rows(state.mesh)
         with record_function("ppo.collect"):
             env_state, chunk = rollout_mod.collect(
-                self.venv, self.policy.sample_fn(), state.env_state,
+                venv, self.policy.sample_fn(), state.env_state,
                 self.config.n_steps, state.generator,
             )
         with record_function("ppo.process_chunk"):
@@ -188,17 +190,19 @@ class PPO:
             return contextlib.nullcontext()
         return self.phase_timer.phase(name, block_on=block_on)
 
-    def _host_collect(self) -> rollout_mod.RolloutChunk:
-        """Refreshes the collector's snapshot and collects one chunk."""
+    def _host_collect(self, state) -> rollout_mod.RolloutChunk:
+        """Refreshes the collector's snapshot and collects one chunk (its
+        draws a data-parallel rank's block where ``state.mesh`` is set)."""
         if self._host_collector is None:
             raise RuntimeError("call init_state() first")
+        self._host_collector.mesh = state.mesh
         self._host_collector.refresh()
         return self._host_collector.collect(self.config.n_steps)
 
     def train_step_host(self, state: common.RLState, reward_params: Any = None):
         """Host-env path: collect on the host, then the update on the device."""
         with self._phase("host_collect"), record_function("ppo.host_collect"):
-            chunk = self._host_collect()
+            chunk = self._host_collect(state)
         block_on = list(self.policy.parameters()) if self.phase_timer is not None else None
         with self._phase("device_update", block_on=block_on), record_function("ppo.process_chunk"):
             return self.process_chunk(state, None, chunk, state.generator, reward_params)
@@ -219,7 +223,7 @@ class PPO:
                 max_workers=1, thread_name_prefix="ppo-host-collect"
             )
         if self._pending_chunk is None:
-            chunk = self._host_collect()
+            chunk = self._host_collect(state)
         else:
             # Only the host-blocked wait is timed: a device barrier here
             # would serialize the pipeline this path exists for.
@@ -242,33 +246,45 @@ class PPO:
             finally:
                 self._pending_chunk = None
 
-    def _normalize_rewards(self, reward_norm: common.RewNormState, rews, dones):
-        """VecNormalize-style scaling by the running std of discounted returns."""
+    def _normalize_rewards(self, reward_norm: common.RewNormState, rews, dones, mesh=None):
+        """VecNormalize-style scaling by the running std of discounted
+        returns; each step's return moments are the global env batch's."""
         cfg = self.config
-        out = []
-        rn = reward_norm
+        ret, rets = reward_norm.ret, []
         for r_t, done_t in zip(rews, dones):
-            ret = rn.ret * cfg.gamma + r_t
-            b_count = ret.shape[0]
-            b_mean = ret.mean()
-            b_var = ret.var(unbiased=False)
-            total = rn.count + b_count
-            delta = b_mean - rn.mean
-            new_mean = rn.mean + delta * b_count / total
-            m2 = rn.var * rn.count + b_var * b_count + delta * delta * rn.count * b_count / total
+            ret = ret * cfg.gamma + r_t
+            rets.append(ret)
+            ret = ret * (1.0 - done_t.float())
+        rets_t = torch.stack(rets)  # [T, B]
+        b_count = torch.full((rets_t.shape[0],), float(rets_t.shape[1]), device=rets_t.device)
+        b_mean = rets_t.mean(dim=1)
+        b_var = rets_t.var(dim=1, unbiased=False)
+        if mesh is not None:
+            b_count, b_mean, m2 = distributed.merge_moments(b_count, b_mean, b_var * b_count, mesh)
+            b_var = m2 / b_count
+        out = []
+        count, mean, var = reward_norm.count, reward_norm.mean, reward_norm.var
+        for t, r_t in enumerate(rews):
+            n = b_count[t]
+            total = count + n
+            delta = b_mean[t] - mean
+            new_mean = mean + delta * n / total
+            m2 = var * count + b_var[t] * n + delta * delta * count * n / total
             new_var = m2 / total
             out.append(torch.clamp(r_t * torch.rsqrt(new_var + 1e-8), -cfg.reward_clip, cfg.reward_clip))
-            rn = common.RewNormState(
-                ret=ret * (1.0 - done_t.float()), var=new_var, mean=new_mean, count=total
-            )
+            count, mean, var = total, new_mean, new_var
+        rn = common.RewNormState(ret=ret, var=var, mean=mean, count=count)
         return rn, torch.stack(out)
 
-    def _loss(self, mb: Dict[str, torch.Tensor]):
+    def _loss(self, mb: Dict[str, torch.Tensor], adv_stats=None):
+        """The clipped loss over ``mb``'s rows; ``adv_stats`` (mean, std) are
+        the whole minibatch's where ``mb`` is a rank's share of it."""
         cfg = self.config
         lp, ent, value = self.policy.evaluate_actions(mb["obs"], mb["acts"])
         adv = mb["advantages"]
         if cfg.normalize_advantage:
-            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+            mean, std = adv_stats if adv_stats is not None else (adv.mean(), adv.std(unbiased=False))
+            adv = (adv - mean) / (std + 1e-8)
         ratio = torch.exp(lp - mb["old_log_prob"])
         pg1 = adv * ratio
         pg2 = adv * torch.clamp(ratio, 1.0 - cfg.clip_range, 1.0 + cfg.clip_range)
@@ -302,19 +318,33 @@ class PPO:
         generator: torch.Generator,
         reward_params: Any = None,
     ):
-        """Relabel, GAE and the clipped epochs over one ``[T, B]`` chunk."""
+        """Relabel, GAE and the clipped epochs over one ``[T, B]`` chunk.
+
+        On a data-parallel rank (``state.mesh``) the chunk is the rank's env
+        columns ``[T, B/W]``: the feature and reward-normalization moments
+        are merged over the ranks, relabel and GAE (B1) run on the rank's
+        columns, and the rollout is then gathered once, so that every rank
+        holds each global minibatch of the one-process epoch permutation.
+        A rank computes the loss of its fixed share of the minibatch's rows,
+        normalizing advantages by the whole minibatch's moments, and the
+        gradients (with the metrics, ``approx_kl`` included) are averaged
+        over the ranks before ``Adam.step``. The chunk returned is the
+        gathered one.
+        """
         cfg = self.config
         policy = self.policy
+        mesh = state.mesh
         T, B = chunk.acts.shape[0], chunk.acts.shape[1]
 
         def flat(x):
-            return x.reshape((T * B,) + tuple(x.shape[2:]))
+            return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
         with torch.no_grad():
             # Fold this chunk's observations into the feature normalizer
             # once per iteration (the rollout used the previous stats).
             if policy.normalize_features:
-                policy.net.update_feature_stats(flat(chunk.obs))
+                with distributed.local_rows(mesh):
+                    policy.net.update_feature_stats(flat(chunk.obs))
 
             true_rews = chunk.rews
             dones_f = chunk.dones.float()
@@ -328,7 +358,7 @@ class PPO:
 
             reward_norm = state.reward_norm
             if cfg.normalize_rewards:
-                reward_norm, rews = self._normalize_rewards(reward_norm, rews, chunk.dones)
+                reward_norm, rews = self._normalize_rewards(reward_norm, rews, chunk.dones, mesh)
 
             if "value" in chunk.aux:
                 values, log_probs = chunk.aux["value"], chunk.aux["log_prob"]
@@ -342,6 +372,17 @@ class PPO:
                 chunk.terminated.float(), dones_f, cfg.gamma, cfg.gae_lambda,
             )
 
+        if mesh is not None:
+            # One gather of the rank's env columns into the [T, B*W] rollout.
+            fields = [getattr(chunk, f) for f in rollout_mod.CHUNK_FIELDS]
+            fields += [rews, log_probs, values, advantages, returns]
+            gathered = distributed.all_gather_many(fields, mesh, dim=1)
+            n_chunk = len(rollout_mod.CHUNK_FIELDS)
+            chunk = rollout_mod.RolloutChunk(aux={}, **dict(zip(rollout_mod.CHUNK_FIELDS, gathered)))
+            rews, log_probs, values, advantages, returns = gathered[n_chunk:]
+            true_rews, dones_f = chunk.rews, chunk.dones.float()
+            B = chunk.acts.shape[1]
+
         batch = {
             "obs": flat(chunk.obs),
             "acts": flat(chunk.acts),
@@ -352,17 +393,34 @@ class PPO:
         }
         n_mb = cfg.n_minibatches
         mb_size = (T * B) // n_mb
+        share = slice(None)
+        if mesh is not None:
+            if mb_size % mesh.dp != 0:
+                raise ValueError(f"minibatch size {mb_size} not divisible by dp={mesh.dp}")
+            share = mesh.rows(mb_size)
         optimizer = state.optimizer
+        params = list(policy.parameters())
         auxs = []
         cont = True
         for _ in range(cfg.n_epochs):
             perm = _epoch_permutation(T * B, generator)
             for i in range(n_mb):
                 idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = {k: v[idx] for k, v in batch.items()}
+                adv_stats = None
+                if mesh is not None and cfg.normalize_advantage:
+                    adv_mb = batch["advantages"][idx]
+                    adv_stats = (adv_mb.mean(), adv_mb.std(unbiased=False))
+                mb = {k: v[idx[share]] for k, v in batch.items()}
                 optimizer.zero_grad()
-                loss, aux = self._loss(mb)
+                loss, aux = self._loss(mb, adv_stats)
                 loss.backward()
+                loss = loss.detach()
+                if mesh is not None:  # the mean of the ranks' gradients and metrics
+                    names = list(aux)
+                    stacked = torch.stack([aux[k] for k in names] + [loss])
+                    distributed.all_reduce_grads_(params, mesh, [stacked])
+                    *values, loss = stacked.unbind(0)
+                    aux = dict(zip(names, values))
                 if cfg.target_kl is not None:
                     # SB3 early stop: the minibatch whose approx_kl exceeds
                     # 1.5*target_kl is not applied, nor anything after it.
@@ -371,8 +429,8 @@ class PPO:
                     aux["grad_norm"] = optimizer.step()
                 else:
                     with torch.no_grad():
-                        aux["grad_norm"] = common.global_norm(p.grad for p in policy.parameters())
-                aux["loss"] = loss.detach()
+                        aux["grad_norm"] = common.global_norm(p.grad for p in params)
+                aux["loss"] = loss
                 auxs.append(aux)
 
         with torch.no_grad():
@@ -422,6 +480,8 @@ class PPO:
         (recorded under ``log_prefix`` and dumped at the step count) or a
         ``callback(state, metrics)``."""
         steps_per_iter = self.config.n_steps * self.venv.num_envs
+        if state.mesh is not None and self.is_host_env:
+            steps_per_iter *= state.mesh.dp  # each rank's host env is its block
         for _ in range(max(1, math.ceil(total_timesteps / steps_per_iter))):
             state, metrics = self.train_step(state, reward_params)[:2]
             if callback is not None or logger is not None:

@@ -28,6 +28,13 @@ Over a host vector env (``venv.is_host``) step 1 is
 before each collection, and steps 2-3 run on ``venv.device``; with
 ``overlap_collection`` the next ``train_freq`` steps are collected on a
 background thread while this round's updates run.
+
+On data-parallel ranks (``parallel.mesh.shard_sac_state``) each rank steps
+its block of the envs and keeps their rows of the replay ring; an update's
+batch is drawn with global indices from the replicated generator and
+gathered from the rows' owners, and every rank then computes the whole
+update, so the result is the one-process one and needs no gradient
+reduction.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from imitation_tpu_torch.envs.base import Space
 from imitation_tpu_torch.envs.vector import VecEnvState, VectorEnv
 from imitation_tpu_torch.models import networks
 from imitation_tpu_torch.models.distributions import SquashedGaussian
+from imitation_tpu_torch.parallel import distributed
 from imitation_tpu_torch.rl import common
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -148,6 +156,9 @@ class SACState:
     generator: torch.Generator
     timesteps: int = 0
     n_updates: int = 0
+    # The data-parallel mesh (parallel.mesh.shard_sac_state): env_state and
+    # the replay ring then hold this rank's env rows.
+    mesh: Optional[Any] = None
 
     @property
     def variables(self) -> SACActor:
@@ -339,16 +350,18 @@ class SAC:
             if self.config.overlap_collection:
                 return self.train_step_host_overlapped(state, reward_params)
             return self.train_step_host(state, reward_params)
+        venv = self.venv if state.mesh is None else self.venv.rows(state.mesh)
         with record_function("sac.collect"):
             env_state, chunk = rollout_mod.collect(
-                self.venv, self._policy.sample_fn(), state.env_state, self.config.train_freq,
+                venv, self._policy.sample_fn(), state.env_state, self.config.train_freq,
                 state.generator,
             )
         return self._process_chunk(state, env_state, chunk, reward_params)
 
-    def _host_collect(self) -> rollout_mod.RolloutChunk:
+    def _host_collect(self, state) -> rollout_mod.RolloutChunk:
         if self._host_collector is None:
             raise RuntimeError("call init_state() first")
+        self._host_collector.mesh = state.mesh
         self._host_collector.refresh()
         return self._host_collector.collect(self.config.train_freq)
 
@@ -356,7 +369,7 @@ class SAC:
         """Host-env path: ``train_freq`` env steps through the host
         collector, then the same store and updates on the device."""
         with record_function("sac.host_collect"):
-            chunk = self._host_collect()
+            chunk = self._host_collect(state)
         return self._process_chunk(state, None, chunk, reward_params)
 
     def train_step_host_overlapped(self, state: SACState, reward_params: Any = None):
@@ -370,7 +383,7 @@ class SAC:
                 max_workers=1, thread_name_prefix="sac-host-collect"
             )
         if self._pending_chunk is None:
-            chunk = self._host_collect()
+            chunk = self._host_collect(state)
         else:
             with record_function("sac.collect_join"):
                 chunk = self._pending_chunk.result()
@@ -391,22 +404,36 @@ class SAC:
 
     def _process_chunk(self, state: SACState, env_state: Optional[VecEnvState],
                        chunk: rollout_mod.RolloutChunk, reward_params: Any):
-        """``_process`` over a ``[T, B]`` chunk's transitions."""
-        T, B = chunk.acts.shape[0], chunk.acts.shape[1]
+        """``_process`` over a ``[T, B]`` chunk's transitions. On a
+        data-parallel rank the chunk is its env columns: the ring stores
+        them where they are, and the episode statistics (and the transitions
+        returned to an adversarial trainer) are gathered over the ranks, in
+        the one-process order."""
 
-        def flat(x):
-            return x.reshape((T * B,) + tuple(x.shape[2:]))
+        def transitions_of(c: rollout_mod.RolloutChunk) -> TransitionBatch:
+            def flat(x):
+                return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
-        transitions = TransitionBatch(
-            obs=flat(chunk.obs),
-            acts=flat(chunk.acts),
-            next_obs=flat(chunk.next_obs),
-            # the TD target bootstraps through time limits, not true terminals
-            dones=flat(chunk.terminated.float()),
-            rews=flat(chunk.rews),
-        )
-        return self._process(state, env_state, transitions, chunk.dones, chunk.episode_return,
-                             reward_params)
+            return TransitionBatch(
+                obs=flat(c.obs),
+                acts=flat(c.acts),
+                next_obs=flat(c.next_obs),
+                # the TD target bootstraps through time limits, not true terminals
+                dones=flat(c.terminated.float()),
+                rews=flat(c.rews),
+            )
+
+        done, ep_return, whole = chunk.dones, chunk.episode_return, None
+        if state.mesh is not None:
+            names = ["dones", "episode_return"]
+            names += ["obs", "acts", "next_obs", "terminated", "rews"] if self.return_transitions else []
+            tensors = [done, ep_return] + [getattr(chunk, n) for n in names[2:]]
+            gathered = dict(zip(names, distributed.all_gather_many(tensors, state.mesh, dim=1)))
+            done, ep_return = gathered.pop("dones"), gathered.pop("episode_return")
+            if self.return_transitions:
+                whole = transitions_of(chunk.replace(**gathered))
+        return self._process(state, env_state, transitions_of(chunk), done, ep_return,
+                             reward_params, whole)
 
     def _alpha(self) -> torch.Tensor:
         if self._auto_alpha:
@@ -475,13 +502,15 @@ class SAC:
         done: torch.Tensor,
         ep_return: torch.Tensor,
         reward_params: Any = None,
+        whole: Optional[TransitionBatch] = None,
     ):
         """Store ``transitions``, run ``gradient_steps`` updates (masked
-        before ``learning_starts``) and gather the metrics on the device."""
+        before ``learning_starts``) and gather the metrics on the device.
+        ``whole`` is every rank's transitions on a data-parallel rank."""
         cfg = self.config
         with record_function("sac.buffer_store"):
             buffer_state = self.replay.store(state.buffer_state, transitions)
-        can_learn = buffer_state.size >= min(cfg.learning_starts, self.replay.capacity)
+        can_learn = buffer_state.global_size >= min(cfg.learning_starts, self.replay.capacity)
         auxs = []
         for _ in range(cfg.gradient_steps):
             with record_function("sac.update"):
@@ -496,16 +525,17 @@ class SAC:
             metrics["ep_return_mean"] = torch.where(
                 n_done > 0, (ep_return * done_f).sum() / torch.clamp(n_done, min=1), nan
             )
-            metrics["buffer_size"] = torch.full((), float(buffer_state.size), device=dev)
+            metrics["buffer_size"] = torch.full((), float(buffer_state.global_size), device=dev)
+        whole = whole if whole is not None else transitions
         new_state = dataclasses.replace(
             state,
             env_state=env_state,
             buffer_state=buffer_state,
-            timesteps=state.timesteps + transitions.batch_size,
+            timesteps=state.timesteps + transitions.batch_size * (1 if state.mesh is None else state.mesh.dp),
             n_updates=state.n_updates + cfg.gradient_steps,
         )
         if self.return_transitions:
-            return new_state, metrics, transitions
+            return new_state, metrics, whole
         return new_state, metrics
 
     # -- host loop ---------------------------------------------------------
@@ -523,6 +553,8 @@ class SAC:
         ``logger``, every ``log_every`` steps (``sac/*``, dumped at the step
         count); ``callback(state, metrics)`` gets them on the device."""
         steps_per_iter = self.config.train_freq * self.venv.num_envs
+        if state.mesh is not None and self.is_host_env:
+            steps_per_iter *= state.mesh.dp  # each rank's host env is its block
         for i in range(max(1, math.ceil(total_timesteps / steps_per_iter))):
             state, metrics = self.train_step(state, reward_params)[:2]
             if logger is not None and (i + 1) % log_every == 0:

@@ -33,6 +33,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from imitation_tpu_torch.parallel import distributed
+from imitation_tpu_torch.parallel import mesh as mesh_mod
+
 _KIND = "__checkpoint_kind__"
 
 
@@ -125,12 +128,25 @@ def _restore(template: Any, saved: Any, path: str, gens: Dict[str, Dict[int, Any
 
 def save_state(path: str, state: Any) -> None:
     """Writes a training state to the file ``path`` (atomically: a
-    temporary file renamed over it)."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(_to_savable(state, {}), tmp)
-    os.replace(tmp, path)
+    temporary file renamed over it).
+
+    A state split over data-parallel ranks (its ``mesh`` set) is a
+    collective: every rank calls this, the split rows are gathered into
+    the one-process form, rank 0 writes it and the others wait at a
+    barrier. It restores at any world size: into an unsplit template, then
+    placed again (``parallel.mesh.shard_rl_state`` / ``shard_sac_state``)."""
+    from imitation_tpu_torch.parallel import distributed, mesh as mesh_mod
+
+    mesh = getattr(state, "mesh", None)
+    state = mesh_mod.unshard_state(state)
+    if mesh is None or mesh.rank == 0:
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(_to_savable(state, {}), tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        distributed.barrier(mesh)
 
 
 def restore_state(path: str, template: Any) -> Any:
@@ -138,6 +154,8 @@ def restore_state(path: str, template: Any) -> Any:
     of the same structure, e.g. a fresh ``init_state()``): modules,
     optimizers, parameters and generators in place, other tensors onto the
     template's devices. Returns the restored state."""
+    if getattr(template, "mesh", None) is not None:
+        raise ValueError("restore into an unsplit template (a fresh init_state()), then shard it")
     saved = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     return _restore(template, saved, "", {"by_index": {}, "by_template": {}})
 
