@@ -275,6 +275,25 @@ Phases, each timed and printed on its own line:
    3 epochs) on 250 synthetic comparisons with the batches split, each
    held against its one-process run as above (the reward net's output
    bias apart: its gradient is rounding noise).
+44. tp_gail / tp_sac / tp_reward / tp_resume: tensor parallelism. The
+   three runs of 42-43 over 4 gloo ranks sharing ``cuda:0`` at dp = 2 by
+   tp = 2 (the rank script with ``ITT_TP=2``): every dense layer whose
+   width divides by 2 split by output columns over the 2 ranks of a dp
+   row (14 parameters of the GAIL policy and disc, 20 of SAC's actor,
+   critic and target, 4 of the reward net, on the card: asserted), each
+   held against the same one-process run and float32 floor as 42-43, the
+   4 ranks bitwise equal, B1 at [128, 32] twice and B2 8 times on each
+   rank, every chunk field on the card; s per round for each rank beside
+   W = 1 (4 processes sharing one card: not a scaling figure). Then the
+   generator state the ranks saved (columns gathered, rank 0 wrote)
+   restored here at tp = 1: its policy bitwise the ranks' gathered one,
+   and one more round (B1 once, B2 4 times).
+45. sb3_expert (with the CLI phases): a Stable-Baselines3 PPO
+   ``model.zip`` written here from a seeded generator, loaded by
+   ``load_policy("ppo", ...)`` on the card and on the CPU (log-probs on
+   4,096 seeded CartPole observations within 1e-5, actions equal but at
+   ties), then ``train_imitation bc with bc_cartpole bc.n_epochs=1
+   expert.policy_type=ppo`` from it through ``ex.run_cli`` (COMPLETED).
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -314,9 +333,9 @@ pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
 bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
 cli_preference_pendulum, gail_host_pendulum, rlhf_host_pendulum, dp_gail_w1,
-dp_gail_w2_rank0, dp_gail_w2_rank1, dp_gail_nccl_w1; a rank counts its own
-launches and reports them) is driven with the kernels' launch counts set to 0 just
-before it and read just after: B2 must launch once per disc step (never in
+dp_gail_w2_rank0, dp_gail_w2_rank1, dp_gail_nccl_w1, tp_gail_rank0-3,
+tp_resume_w1; a rank counts its own launches and reports them) is driven
+with the kernels' launch counts set to 0 just before it and read just after: B2 must launch once per disc step (never in
 RLHF), and B1 once per round or iteration of a PPO path and never on a SAC
 one. The reward
 nets' forward on the card is held against a CPU copy on 4096 replay rows.
@@ -452,8 +471,8 @@ def check_kernels(torch, dev):
     # (rlhf_pendulum), [128, 8] (rlhf_active_pendulum), [64, 16]
     # (density_pendulum), [32, 8] (rlhf_pixel_cartpole) and [128, 64]
     # (cli_gail_cartpole; the CLI's other PPO paths run [256, 8] and
-    # [128, 8]) and [128, 32] (each rank of dp_gail's two); then the
-    # HalfCheetah path's, edge shapes and a large one.
+    # [128, 8]) and [128, 32] (each rank of dp_gail's two and of tp_gail's
+    # four); then the HalfCheetah path's, edge shapes and a large one.
     main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64), (128, 32))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
@@ -506,7 +525,8 @@ def check_kernels(torch, dev):
         rlhf_pixel=dict(gae_rows[(32, 8)], shape="[32, 8] f32 x5 -> x2"),
         gail_cartpole=dict(gae_rows[(128, 64)], shape="[128, 64] f32 x5 -> x2"),
         dp_rank=dict(gae_rows[(128, 32)], shape="[128, 32] f32 x5 -> x2: one rank's columns of dp_gail's "
-                                                "[128, 64] over 2 ranks (timed alone, not under the ranks)"),
+                                                "[128, 64] over 2 ranks, and of a dp row of tp_gail's 4 ranks "
+                                                "(timed alone, not under the ranks)"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -2788,6 +2808,76 @@ def run_cli_imitation_cartpole(torch, dev, root):
         raise AssertionError(f"{phase}: BC, DAgger, SQIL and evaluation launch neither kernel: {launches}")
 
 
+def sb3_zip(torch, path, seed=0):
+    """A Stable-Baselines3 PPO ``model.zip`` for CartPole, written here from a
+    seeded generator with ``torch.save`` and ``zipfile`` (SB3's layout: a
+    (64, 64) tanh actor-critic's ``policy.pth`` and the ``data`` JSON)."""
+    import io
+    import zipfile
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for i, (din, dout) in enumerate(((4, 64), (64, 64))):
+        for net in ("policy_net", "value_net"):
+            sd[f"mlp_extractor.{net}.{2 * i}.weight"] = torch.randn(dout, din, generator=g) / din ** 0.5
+            sd[f"mlp_extractor.{net}.{2 * i}.bias"] = 0.1 * torch.randn(dout, generator=g)
+    for name, out in (("action_net", 2), ("value_net", 1)):
+        sd[f"{name}.weight"] = torch.randn(out, 64, generator=g) / 8.0
+        sd[f"{name}.bias"] = 0.1 * torch.randn(out, generator=g)
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("policy.pth", buf.getvalue())
+        zf.writestr("data", json.dumps({"activation_fn": "<class 'torch.nn.modules.activation.Tanh'>"}))
+
+
+def run_sb3_expert(torch, dev, root):
+    """An SB3 ``model.zip`` expert: loaded by ``load_policy("ppo", ...)`` on
+    the card and on the CPU, its actions and log-probs on 4,096 seeded
+    CartPole observations equal within 1e-5; then ``train_imitation bc
+    with expert.policy_type=ppo`` from the zip through ``ex.run_cli``
+    (COMPLETED). Neither kernel is on this path."""
+    import numpy as np
+
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.policies import serialize as policy_serialize
+
+    phase = "sb3_expert"
+    path = os.path.join(root, "sb3_model.zip")
+    sb3_zip(torch, path)
+    on_card = policy_serialize.load_policy("ppo", make_vec_env("CartPole-v1", num_envs=8, device=dev), path=path)
+    on_cpu = policy_serialize.load_policy("ppo", make_vec_env("CartPole-v1", num_envs=8, device="cpu"), path=path)
+    if {p.device.type for p in on_card.parameters()} != {"cuda"}:
+        raise AssertionError(f"{phase}: the policy is not on the card")
+    obs = np.random.default_rng(0).normal(scale=0.5, size=(4096, 4)).astype(np.float32)
+    out = {}
+    for name, policy, device in (("card", on_card, dev), ("cpu", on_cpu, "cpu")):
+        x = torch.from_numpy(obs).to(device)
+        with torch.no_grad():
+            dist = policy.distribution(x)
+            lp = torch.stack([dist.log_prob(torch.full((4096,), a, dtype=torch.int32, device=device))
+                              for a in (0, 1)])
+            acts = policy.deterministic_fn()(x)[0]
+        out[name] = (acts.cpu().numpy(), lp.cpu().numpy())
+    err = float(np.abs(out["card"][1] - out["cpu"][1]).max())
+    same_acts = int((out["card"][0] == out["cpu"][0]).sum())
+    # An action may flip only where its two log-probs tie within the tolerance.
+    ties = int((np.abs(out["cpu"][1][0] - out["cpu"][1][1]) <= 2e-5).sum())
+    if err > 1e-5 or same_acts + ties < 4096:
+        raise AssertionError(f"{phase}: card vs CPU log-prob diff {err:.3g}, {same_acts} of 4096 actions equal")
+    log(phase, f"load_policy('ppo', path=<model.zip>) on the card and on the CPU: log-probs max abs diff "
+               f"{err:.3g} (limit 1e-5), actions equal {same_acts} of 4096 (both actions taken: "
+               f"{0 < out['card'][0].sum() < 4096})")
+    zero_counts()
+    result, _ = cli_run(torch, phase, "train_imitation",
+                        ["bc", "with", "bc_cartpole", "bc.n_epochs=1", "expert.policy_type=ppo",
+                         f"expert.loader_kwargs.path={path}"], root)
+    finite_stats(phase, result["imit_stats"])
+    log(phase, f"bc from the SB3 expert: {stats_line(result['imit_stats'])}; kernel launches {counts()}")
+    if any(counts().values()):
+        raise AssertionError(f"{phase}: BC launches neither kernel: {counts()}")
+
+
 def run_cli_preference_pendulum(torch, dev, root):
     """``train_preference_comparisons with active env_name=Pendulum-v1``,
     cut as rlhf_active_pendulum: B1 at [128, 8] once per PPO iteration
@@ -3183,6 +3273,8 @@ DP_ROUNDS = 2
 DP_LAUNCH_TIMEOUT_S = 300  # the launch of the ranks, start to join
 DP_GROUP_TIMEOUT = datetime.timedelta(seconds=120)  # any one collective
 DP_NUDGE = 1.2e-7  # about one float32 ulp of the weights: the floor's nudge
+TP_WORLD, TP_SIZE = 4, 2  # the tp phase: dp = 2 by tp = 2 gloo ranks on the one card
+TP_LAUNCH_TIMEOUT_S = 420
 
 
 def free_port() -> int:
@@ -3200,7 +3292,11 @@ def dp_sync(torch, dev) -> None:
 
 
 def dp_params(module):
-    return {k: v.detach().float().cpu().numpy().copy() for k, v in module.named_parameters()}
+    """The parameters, tp-split ones gathered whole (a collective where any is split)."""
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+
+    names = dict(module.named_parameters())
+    return {k: v.float().cpu().numpy().copy() for k, v in mesh_mod.full_state_dict(module).items() if k in names}
 
 
 def dp_nudge(torch, modules, rel) -> None:
@@ -3210,15 +3306,13 @@ def dp_nudge(torch, modules, rel) -> None:
                 p.mul_(1 + rel)
 
 
-def dp_gail(torch, dev, mesh=None, rel=0.0):
-    """GAIL ``train_fused`` at gail_cartpole's tuned widths (64 CartPole envs
-    x 128 steps, PPO batch 128 = 64 minibatches x 5 epochs, lr 1e-3, ent
-    0.01, a (32, 32) actor-critic, demo batch 1024, 4 disc updates, 10
-    scripted demos, the CLI's seed 0) for ``DP_ROUNDS`` rounds; over
-    ``mesh``'s ranks when given, every rank building the same trainer."""
+def dp_gail_trainer(torch, dev):
+    """GAIL at gail_cartpole's tuned widths (64 CartPole envs x 128 steps,
+    PPO batch 128 = 64 minibatches x 5 epochs, lr 1e-3, ent 0.01, a (32, 32)
+    actor-critic, demo batch 1024, 4 disc updates, 10 scripted demos, the
+    CLI's seed 0), its generator state made."""
     from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
     from imitation_tpu_torch.envs import make_vec_env
-    from imitation_tpu_torch.parallel import mesh as mesh_mod
     from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
     from imitation_tpu_torch.rl.ppo import PPOConfig
     from imitation_tpu_torch.testing import experts
@@ -3232,9 +3326,37 @@ def dp_gail(torch, dev, mesh=None, rel=0.0):
                    reward_net=BasicRewardNet(venv.observation_space, venv.action_space, normalize_input=False),
                    allow_variable_horizon=True, seed=0, custom_logger=make_logger())
     trainer.gen_state = trainer.gen_algo.init_state()
+    return trainer
+
+
+def dp_gail(torch, dev, mesh=None, rel=0.0, ckpt=None):
+    """``dp_gail_trainer``'s GAIL ``train_fused`` for ``DP_ROUNDS`` rounds;
+    over ``mesh``'s ranks when given, every rank building the same trainer
+    (at tp > 1 its dense layers split by columns). Records the devices of
+    the parameters (tp-split ones apart) and of every chunk field; with
+    ``ckpt`` the generator state is saved there afterwards (every rank
+    gathers, rank 0 writes)."""
+    from imitation_tpu_torch.data.rollout import CHUNK_FIELDS
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+    from imitation_tpu_torch.util.checkpoint import save_state
+
+    trainer = dp_gail_trainer(torch, dev)
     dp_nudge(torch, [trainer.policy, trainer.reward_net], rel)
     if mesh is not None:
         mesh_mod.shard_adversarial_trainer(trainer, mesh)
+    params = list(trainer.policy.parameters()) + list(trainer.reward_net.parameters())
+    devices = {"split": sorted({p.device.type for p in params if mesh_mod.is_tp_split(p)}),
+               "whole": sorted({p.device.type for p in params if not mesh_mod.is_tp_split(p)}), "chunk": set()}
+    n_split = sum(mesh_mod.is_tp_split(p) for p in params)
+    gen = trainer.gen_algo
+    process = gen.process_chunk
+
+    def recording(state, env_state, chunk, generator, reward_params=None):
+        devices["chunk"].update(getattr(chunk, f).device.type for f in CHUNK_FIELDS)
+        devices["chunk"].update(v.device.type for v in chunk.aux.values())
+        return process(state, env_state, chunk, generator, reward_params)
+
+    gen.process_chunk = recording
     init = {"policy": dp_params(trainer.policy), "disc": dp_params(trainer.reward_net)}
     dp_sync(torch, dev)
     zero_counts()
@@ -3246,11 +3368,15 @@ def dp_gail(torch, dev, mesh=None, rel=0.0):
     want = {"gae": DP_ROUNDS, "assemble_rows": DP_ROUNDS * trainer.n_disc_updates_per_round}
     if launches != want:  # B1 once a round on the rank's columns, B2 once per disc step
         raise AssertionError(f"dp_gail: launches {launches}, expected {want}")
+    if ckpt is not None:
+        save_state(ckpt, trainer.gen_state)
+    devices["chunk"] = sorted(devices["chunk"])
     ring = trainer._gen_buffer_state
     return dict(init=init, policy=dp_params(trainer.policy), disc=dp_params(trainer.reward_net),
                 ring_obs=ring.data.obs.cpu().numpy(), ring_size=ring.size, launches=launches, s_round=s_round,
                 local_envs=trainer.gen_state.env_state.obs.shape[0], timesteps=trainer.gen_state.timesteps,
-                disc_step=trainer.disc_state.step, logged=trainer.logger.rows[-1])
+                disc_step=trainer.disc_state.step, logged=trainer.logger.rows[-1], devices=devices,
+                n_split=n_split)
 
 
 def dp_sac(torch, dev, mesh=None, rel=0.0, rounds=4):
@@ -3270,6 +3396,8 @@ def dp_sac(torch, dev, mesh=None, rel=0.0, rounds=4):
     if mesh is not None:
         state = mesh_mod.shard_sac_state(state, mesh)
     init = {"actor": dp_params(sac.actor), "critic": dp_params(sac.critic)}
+    n_split = sum(mesh_mod.is_tp_split(p) for m in (sac.actor, sac.critic, sac.target_critic)
+                  for p in m.parameters() if p.device.type == torch.device(dev).type)
     local_rows = state.buffer_state.data.batch_size
     zero_counts()
     dp_sync(torch, dev)
@@ -3280,7 +3408,7 @@ def dp_sac(torch, dev, mesh=None, rel=0.0, rounds=4):
     return dict(init=init, actor=dp_params(sac.actor), critic=dp_params(sac.critic), local_rows=local_rows,
                 local_size=state.buffer_state.size, global_size=state.buffer_state.global_size,
                 timesteps=state.timesteps, launches=counts(), s_round=(time.perf_counter() - t0) / rounds,
-                critic_loss=float(metrics["critic_loss"]))
+                critic_loss=float(metrics["critic_loss"]), n_split=n_split)
 
 
 def dp_reward(torch, dev, mesh=None, rel=0.0):
@@ -3317,10 +3445,11 @@ def dp_reward(torch, dev, mesh=None, rel=0.0):
         mesh_mod.shard_preference_comparisons(
             pytypes.SimpleNamespace(reward_trainer=trainer, trajectory_generator=None), mesh)
     init = dp_params(net)
+    n_split = sum(mesh_mod.is_tp_split(p) for p in net.parameters() if p.device.type == torch.device(dev).type)
     zero_counts()
     metrics = trainer.train(dataset)
     dp_sync(torch, dev)
-    return dict(init={"net": init}, net=dp_params(net), metrics=dict(metrics), launches=counts())
+    return dict(init={"net": init}, net=dp_params(net), metrics=dict(metrics), launches=counts(), n_split=n_split)
 
 
 def dp_floor(exact, nudged, key, skip=()):
@@ -3355,10 +3484,12 @@ def dp_equal_ranks(phase, ranks, key):
 
 
 def dp_rank_main(out_dir: str, device: str) -> int:
-    """One rank of the dp phase (``chip_smoke.py --dp-rank <dir> <device>``,
-    started with torchrun's variables): joins the gloo group on ``device``
-    (every rank on the one card), runs GAIL, SAC and the reward trainer over
-    the mesh and writes its results to ``<dir>/rank<r>.pt``."""
+    """One rank of the dp or tp phase (``chip_smoke.py --dp-rank <dir>
+    <device>``, started with torchrun's variables and ``ITT_TP``): joins the
+    gloo group on ``device`` (every rank on the one card), runs GAIL, SAC
+    and the reward trainer over the ``dp x tp`` mesh and writes its results
+    to ``<dir>/rank<r>.pt``; at tp > 1 the GAIL generator state is saved to
+    ``<dir>/gen.ckpt`` too."""
     import torch
 
     from imitation_tpu_torch.ops import kernels
@@ -3370,31 +3501,33 @@ def dp_rank_main(out_dir: str, device: str) -> int:
         kernels.load()  # the parent's build, found by its hash
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    mesh = mesh_mod.make_mesh()
-    out = {"gail": dp_gail(torch, dev, mesh)}
+    tp = int(os.environ.get("ITT_TP", "1"))
+    mesh = mesh_mod.make_mesh(tp=tp)
+    out = {"gail": dp_gail(torch, dev, mesh, ckpt=os.path.join(out_dir, "gen.ckpt") if tp > 1 else None)}
     out["sac"] = dp_sac(torch, dev, mesh)
     out["reward"] = dp_reward(torch, dev, mesh)
     for key in ("sac", "reward"):
         if out[key]["launches"] != {"gae": 0, "assemble_rows": 0}:
             raise AssertionError(f"dp_{key}: kernel launches {out[key]['launches']} on a path without either")
-    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    torch.save(out, os.path.join(out_dir, f"rank{distributed.process_index()}.pt"))
     distributed.shutdown()
     return 0
 
 
-def dp_launch(torch, phase, out_dir, dev):
-    """Starts ``DP_WORLD`` ranks of this script with torchrun's variables and
-    waits for them (``DP_LAUNCH_TIMEOUT_S`` in all; every rank is killed
-    when one fails or time runs out). Returns each rank's results."""
+def dp_launch(torch, phase, out_dir, dev, world=DP_WORLD, tp=1):
+    """Starts ``world`` ranks of this script with torchrun's variables (a
+    ``world / tp`` by ``tp`` mesh) and waits for them (``DP_LAUNCH_TIMEOUT_S``
+    or ``TP_LAUNCH_TIMEOUT_S`` in all; every rank is killed when one fails
+    or time runs out). Returns each rank's results."""
     port = free_port()
     procs = []
-    for rank in range(DP_WORLD):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(rank),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), ITT_TP=str(tp))
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", out_dir, str(dev)],
                                       cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    deadline = time.perf_counter() + DP_LAUNCH_TIMEOUT_S
+    deadline = time.perf_counter() + (DP_LAUNCH_TIMEOUT_S if tp == 1 else TP_LAUNCH_TIMEOUT_S)
     outs = []
     try:
         for p in procs:
@@ -3409,7 +3542,33 @@ def dp_launch(torch, phase, out_dir, dev):
             log(f"{phase}/rank{rank}", line)
         if p.returncode != 0:
             raise AssertionError(f"{phase}: rank {rank} exited {p.returncode}")
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def tp_resume(torch, dev, ckpt, want):
+    """The generator state the tp ranks saved, restored into a fresh
+    one-process trainer (``tp = 1``): its policy must be the ranks' gathered
+    policy bit for bit; then one more ``train_fused`` round (B1 once, B2 4
+    times, finite weights). Returns the round's launches and seconds."""
+    from imitation_tpu_torch.util.checkpoint import restore_state
+
+    trainer = dp_gail_trainer(torch, dev)
+    trainer.gen_state = restore_state(ckpt, trainer.gen_algo.init_state())
+    got = dp_params(trainer.policy)
+    if sorted(got) != sorted(want) or not all((got[k] == v).all() for k, v in want.items()):
+        raise AssertionError("tp_resume: the restored policy differs from the ranks' gathered policy")
+    dp_sync(torch, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.train_fused(trainer.gen_train_timesteps, rounds_per_sync=1)
+    dp_sync(torch, dev)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    if launches != {"gae": 1, "assemble_rows": trainer.n_disc_updates_per_round}:
+        raise AssertionError(f"tp_resume: launches {launches}")
+    if not all(torch.isfinite(p).all() for p in trainer.policy.parameters()):
+        raise AssertionError("tp_resume: non-finite weights after the resumed round")
+    return launches, seconds, trainer.gen_state.n_updates
 
 
 def run_dp(torch, dev):
@@ -3504,6 +3663,81 @@ def run_dp(torch, dev):
     log(phase, f"initialize('{backend_w1}') at world size 1: mesh {mesh.shape}, launches {w1['launches']}, "
                f"{w1['s_round']:.3f} s per round; {'bitwise equal to' if bitwise else 'within tolerance of'} "
                f"the one-process run")
+
+    paths.update(run_tp(torch, dev, one, floors, (one_sac, sac_floors), (one_rew, rew_floor, bias)))
+    return paths
+
+
+def run_tp(torch, dev, one, floors, sac_ref, rew_ref):
+    """Tensor parallelism: the dp phase's GAIL, SAC and reward-trainer runs
+    over ``TP_WORLD`` gloo ranks sharing the card at ``dp = 2`` by
+    ``tp = 2`` (every dense layer whose width divides by 2 split by output
+    columns over the 2 ranks of a dp row), each held against the dp phase's
+    one-process run and its float32 floor; the ranks bitwise equal; B1 and
+    B2 counted on each rank. Then the generator state the ranks saved,
+    resumed in this process at ``tp = 1``. Returns the launch counts."""
+    one_sac, sac_floors = sac_ref
+    one_rew, rew_floor, bias = rew_ref
+    dp = TP_WORLD // TP_SIZE
+    phase = "tp_gail"
+    log(phase, f"cut: {DP_ROUNDS} rounds of gail_cartpole.json's 500,000 timesteps (61), as dp_gail; widths as "
+               f"tuned; dp={dp} x tp={TP_SIZE}")
+    paths = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="itt_tp_") as out_dir:
+        ranks = dp_launch(torch, phase, out_dir, dev, world=TP_WORLD, tp=TP_SIZE)
+        launch_s = time.perf_counter() - t0
+        gail = [r["gail"] for r in ranks]
+        resume_launches, resume_s, resume_updates = tp_resume(
+            torch, dev, os.path.join(out_dir, "gen.ckpt"), gail[0]["policy"])
+    log(phase, f"{TP_WORLD} gloo ranks on {dev} (dp={dp} x tp={TP_SIZE}): launched, ran GAIL, SAC and the "
+               f"reward trainer and joined in {launch_s:.2f} s")
+    dev_type = torch.device(dev).type
+    for r, res in enumerate(gail):
+        paths[f"tp_gail_rank{r}"] = res["launches"]
+        if res["local_envs"] != 64 // dp or res["timesteps"] != one["timesteps"]:
+            raise AssertionError(f"{phase}: rank {r} stepped {res['local_envs']} envs, {res['timesteps']} steps")
+        if res["n_split"] != 14 or any(v != [dev_type] for v in res["devices"].values()):
+            # policy: pi0, pi1, pi_out, vf0, vf1 (weight, bias); disc: dense0, dense1
+            raise AssertionError(f"{phase}: rank {r}: {res['n_split']} split parameters, devices {res['devices']}")
+    for key in ("policy", "disc"):
+        dp_equal_ranks(phase, gail, key)
+        dp_close(phase, f"dp={dp} x tp={TP_SIZE} against W=1:", gail[0], one, key, floors[key])
+    log(phase, f"ranks bitwise equal (policy, disc); 14 split parameters a rank (policy pi0, pi1, pi_out, vf0, "
+               f"vf1; disc dense0, dense1), every split parameter, whole parameter and chunk field on "
+               f"{dev_type}; B1 at [128, {64 // dp}] and B2 per rank: {[g['launches'] for g in gail]}")
+    per_rank = ", ".join(f"{g['s_round']:.3f}" for g in gail)
+    log(phase, f"s per round: W=1 {one['s_round']:.3f} (one process alone on the card), dp={dp} x tp={TP_SIZE} "
+               f"{per_rank} (ranks 0-3: {TP_WORLD} processes sharing one card over gloo; not a scaling figure)")
+
+    phase = "tp_sac"
+    sac = [r["sac"] for r in ranks]
+    for key in ("actor", "critic"):
+        dp_equal_ranks(phase, sac, key)
+        dp_close(phase, f"dp={dp} x tp={TP_SIZE} against W=1:", sac[0], one_sac, key, sac_floors[key])
+    if sac[0]["n_split"] != 20 or sac[0]["global_size"] != one_sac["global_size"]:
+        # actor dense0, dense1; critic and target critic q0/q1_dense0/1 (weight, bias)
+        raise AssertionError(f"{phase}: {sac[0]['n_split']} split parameters, fill {sac[0]['global_size']}")
+    log(phase, f"20 split parameters a rank (actor dense0-1, critic and target q0/q1 dense0-1); s per round "
+               f"W=1 {one_sac['s_round']:.3f}, dp={dp} x tp={TP_SIZE} "
+               f"{sac[0]['s_round']:.3f} ({TP_WORLD} processes sharing one card)")
+
+    phase = "tp_reward"
+    rew = [r["reward"] for r in ranks]
+    dp_equal_ranks(phase, rew, "net")
+    dp_close(phase, f"dp={dp} x tp={TP_SIZE} against W=1:", rew[0], one_rew, "net", rew_floor, bias)
+    for k, v in one_rew["metrics"].items():
+        if not math.isclose(rew[0]["metrics"][k], v, rel_tol=1e-4, abs_tol=1e-5):
+            raise AssertionError(f"{phase}: metric {k} {rew[0]['metrics'][k]} vs {v}")
+    if rew[0]["n_split"] != 4:
+        raise AssertionError(f"{phase}: {rew[0]['n_split']} split parameters")
+    log(phase, "4 split parameters a rank; metrics " + ", ".join(f"{k} {v:.4g}" for k, v in rew[0]["metrics"].items()))
+
+    phase = "tp_resume"
+    paths["tp_resume_w1"] = resume_launches
+    log(phase, f"the generator saved at dp={dp} x tp={TP_SIZE} (columns gathered, rank 0 wrote) restored here at "
+               f"tp=1: policy bitwise equal to the ranks' gathered one; one more round {resume_s:.3f} s, "
+               f"launches {resume_launches}, {resume_updates} gen updates in all")
     return paths
 
 
@@ -3678,7 +3912,8 @@ def main() -> int:
                           ("cli_airl_pendulum", lambda: run_cli_airl_pendulum(torch, dev, root)),
                           ("cli_imitation_cartpole", lambda: run_cli_imitation_cartpole(torch, dev, root)),
                           ("cli_preference_pendulum", lambda: run_cli_preference_pendulum(torch, dev, root)),
-                          ("cli_main", lambda: run_cli_main(torch, root))):
+                          ("cli_main", lambda: run_cli_main(torch, root)),
+                          ("sb3_expert", lambda: run_sb3_expert(torch, dev, root))):
             t0 = time.perf_counter()
             paths.update(fn() or {})
             log(phase, f"done in {time.perf_counter() - t0:.2f} s")
@@ -3719,10 +3954,12 @@ def main() -> int:
     # Data-parallel training: GAIL train_fused at gail_cartpole's widths in one
     # process, over 2 gloo ranks sharing the card (B1 at [128, 32] once a
     # round and B2 4 times a round on each) and through NCCL at world size 1;
-    # SAC with the split ring and the reward trainer over the 2 ranks.
+    # SAC with the split ring and the reward trainer over the 2 ranks. Then
+    # the same three over 4 ranks at dp = 2 by tp = 2 (B1 at [128, 32] and B2
+    # on each), and the tp ranks' generator resumed here at tp = 1.
     t0 = time.perf_counter()
     paths.update(run_dp(torch, dev))
-    log("dp", f"the dp phases took {time.perf_counter() - t0:.2f} s")
+    log("dp", f"the dp and tp phases took {time.perf_counter() - t0:.2f} s")
 
     for e in entries:  # the launches of every driven path, each counted from 0
         e["paths"] = {path: n[e["name"]] for path, n in paths.items() if n[e["name"]]}

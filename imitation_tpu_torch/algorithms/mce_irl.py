@@ -33,7 +33,7 @@ from imitation_tpu_torch import Device, default_device, make_generator
 from imitation_tpu_torch.algorithms import base
 from imitation_tpu_torch.data import types
 from imitation_tpu_torch.envs.tabular import TabularMDP
-from imitation_tpu_torch.models.networks import init_dense_, lecun_normal_
+from imitation_tpu_torch.models.networks import Dense, init_dense_, lecun_normal_
 from imitation_tpu_torch.rl.common import Adam
 from imitation_tpu_torch.util.logger import HierarchicalLogger
 
@@ -166,7 +166,7 @@ class LinearRewardNet(nn.Module):
 
     def __init__(self, obs_dim: int):
         super().__init__()
-        self.w = nn.Linear(obs_dim, 1, bias=False)
+        self.w = Dense(obs_dim, 1, bias=False)
         self.init()
 
     def init(self, generator: Optional[torch.Generator] = None) -> "LinearRewardNet":
@@ -187,8 +187,8 @@ class MLPRewardNet(nn.Module):
         self.hid_sizes = tuple(hid_sizes)
         sizes = (obs_dim,) + self.hid_sizes
         for i in range(len(self.hid_sizes)):
-            setattr(self, f"dense{i}", nn.Linear(sizes[i], sizes[i + 1]))
-        self.out = nn.Linear(sizes[-1], 1)
+            setattr(self, f"dense{i}", Dense(sizes[i], sizes[i + 1]))
+        self.out = Dense(sizes[-1], 1)
         self.init()
 
     def init(self, generator: Optional[torch.Generator] = None) -> "MLPRewardNet":

@@ -21,7 +21,6 @@ Port of ``imitation_tpu/data/rollout.py``:
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -32,6 +31,7 @@ from imitation_tpu_torch import make_generator
 from imitation_tpu_torch.data import types
 from imitation_tpu_torch.envs.vector import VecEnvState, VectorEnv
 from imitation_tpu_torch.parallel import distributed
+from imitation_tpu_torch.parallel import mesh as mesh_mod
 
 # A rollout policy: (obs[B, ...], generator) -> (acts[B, ...], aux dict).
 PolicyApply = Callable[[torch.Tensor, torch.Generator], Tuple[torch.Tensor, Any]]
@@ -141,7 +141,8 @@ class HostCollector:
     policy made by ``module_fn`` (every policy module's ``sample_fn``) runs
     over a CPU snapshot of its module, which ``refresh`` (or
     ``set_policy``) overwrites with the module's ``state_dict``, buffers
-    included, by a synchronous copy. The learners update their module in
+    included, by a synchronous copy; a tp-split module's split weights are
+    gathered whole first, so the snapshot is the unsplit module. The learners update their module in
     place on ``venv.device`` meanwhile, so a collection running on another
     thread reads only the snapshot. Other policies (scripted experts,
     ``host_stateful`` ones) are host functions and are called as they are.
@@ -174,16 +175,17 @@ class HostCollector:
             self._source, self._apply = None, policy_apply
             return
         if module is not self._source:
-            self._snapshot = copy.deepcopy(module).cpu()
+            self._snapshot = mesh_mod.unsplit_copy(module).cpu()
             self._source = module
         self._apply = policy_apply.rebind(self._snapshot)
         self.refresh()
 
     def refresh(self) -> None:
-        """Copies the module's current weights and buffers into the snapshot."""
+        """Copies the module's current weights and buffers into the snapshot
+        (tp-split weights gathered whole: a collective over the tp ranks)."""
         if self._source is not None:
             with torch.no_grad():
-                self._snapshot.load_state_dict(self._source.state_dict())
+                self._snapshot.load_state_dict(mesh_mod.full_state_dict(self._source))
 
     def collect(self, num_steps: int, device=None) -> RolloutChunk:
         recs: Dict[str, List[np.ndarray]] = {k: [] for k in CHUNK_FIELDS}

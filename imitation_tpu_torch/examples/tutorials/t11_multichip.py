@@ -1,19 +1,21 @@
-"""Tutorial 11: multi-process GAIL — data-parallel ``train_fused`` and a resume
-at another world size.
+"""Tutorial 11: multi-process GAIL — sharded ``train_fused`` over ``dp x tp``
+ranks and a resume on another layout.
 
 Port of ``examples/tutorials/t11_multichip.py``. One GAIL trainer's whole
-state is placed on a ``dp`` mesh of processes, one device each
-(``parallel.mesh.shard_adversarial_trainer``): every rank steps its block of
-the envs, the gradients are averaged over the ranks, and the replay ring
-and discriminator stay replicated, so the ranks end bitwise equal and with
-what one process would compute. The generator state saved from that layout
-(rank 0 writes) restores in one process (``dp = 1``) and keeps training.
-Tensor parallelism (the JAX tutorial's ``tp = 2``) is not ported
-(``parallel.mesh``), so this runs at ``tp = 1``.
+state is placed on a ``dp x tp`` mesh of processes, one device each
+(``parallel.mesh.shard_adversarial_trainer``), at ``dp = world / 2`` by
+``tp = 2`` as the JAX tutorial runs it: every dp row steps its block of the
+envs, the gradients are averaged over the dp ranks, the dense layers of the
+policy and the discriminator are split by output columns over the 2 tp
+ranks of a row, and the replay ring stays replicated, so the ranks end
+bitwise equal and with what one process would compute. The generator state
+saved from that layout (its columns gathered, rank 0 writes) restores in one
+process (``tp = 1``) and keeps training.
 
-Run one rank per GPU with NCCL, or several CPU ranks with gloo::
+Run one rank per GPU with NCCL, or several CPU ranks with gloo (an even
+number of ranks)::
 
-    torchrun --nproc-per-node 2 -m imitation_tpu_torch.examples.tutorials.t11_multichip
+    torchrun --nproc-per-node 4 -m imitation_tpu_torch.examples.tutorials.t11_multichip
     torchrun --nproc-per-node 4 -m imitation_tpu_torch.examples.tutorials.t11_multichip \
         --backend gloo --device cpu
 """
@@ -38,8 +40,9 @@ from imitation_tpu_torch.util.logger import configure
 
 def run(mesh: mesh_mod.Mesh, ckpt_dir: str, device: Device, n_rounds: int = 8) -> Tuple[Any, Optional[Any]]:
     """``n_rounds`` rounds of sharded ``train_fused`` over ``mesh``; then rank
-    0 alone restores the generator into a fresh trainer and trains 2 more
-    rounds. Returns (the sharded trainer, the resumed one or None)."""
+    0 alone restores the generator into a fresh trainer (``tp = 1``) and
+    trains 2 more rounds. Returns (the sharded trainer, the resumed one or
+    None)."""
     venv = make_vec_env("CartPole-v1", num_envs=8, max_episode_steps=32, device=device)
     demos = experts.generate_expert_trajectories("CartPole-v1", venv, min_episodes=4)
 
@@ -49,19 +52,21 @@ def run(mesh: mesh_mod.Mesh, ckpt_dir: str, device: Device, n_rounds: int = 8) -
                     n_disc_updates_per_round=2, allow_variable_horizon=True, seed=0,
                     custom_logger=configure(format_strs=()))
 
-    # --- train over dp ranks ---------------------------------------------
+    first = distributed.process_index() == 0
+
+    # --- train over dp x tp ranks ------------------------------------------
     trainer = build()
     mesh_mod.shard_adversarial_trainer(trainer, mesh)
     trainer.train_fused(n_rounds * trainer.gen_train_timesteps, rounds_per_sync=4)
-    if mesh.rank == 0:
+    if first:
         print(f"trained {trainer.gen_state.n_updates} gen updates / {trainer.disc_state.step} disc steps "
               f"on mesh {mesh.shape}, {trainer.gen_state.env_state.obs.shape[0]} envs a rank")
     path = os.path.join(ckpt_dir, "gen")
     save_state(path, trainer.gen_state)  # every rank gathers; rank 0 writes
 
-    # --- resume the generator in one process (dp = 1) ---------------------
+    # --- resume the generator in one process (dp = 1, tp = 1) -------------
     resumed = None
-    if mesh.rank == 0:
+    if first:
         resumed = build()
         resumed.gen_state = restore_state(path, resumed.gen_algo.init_state())
         resumed.train_fused(2 * resumed.gen_train_timesteps, rounds_per_sync=2)
@@ -82,7 +87,7 @@ def main(argv=None) -> None:
     try:
         # Only rank 0 writes and reads the checkpoint in its directory.
         with tempfile.TemporaryDirectory(prefix="t11_ckpt_") as tmp:
-            run(mesh_mod.make_mesh(), tmp, device, args.rounds)
+            run(mesh_mod.make_mesh(tp=2), tmp, device, args.rounds)
     finally:
         distributed.shutdown()
 

@@ -21,6 +21,16 @@ Port of ``imitation_tpu/models/networks.py``:
   out]`` and evaluated for all members in one batched product per layer
   (the members of a ``RewardEnsemble``).
 
+Every dense layer is a ``Dense`` (an ``nn.Linear``) and computes through
+``linear``. Placed by ``parallel.mesh.shard_params_tp`` at ``tp > 1``, a
+layer keeps one tp rank's block of output rows of its weight and bias
+(marked ``tp_mesh``) and becomes column-split: ``linear`` passes the input
+through ``parallel.distributed.tp_copy`` (whose backward sums the input
+gradient over the tp ranks in rank order), computes the local product and
+gathers the ranks' output blocks (``tp_gather``), so its output is the
+unsplit layer's. A conv layer whose bias is split gathers the bias before
+the convolution. A layer that is not split computes exactly as before.
+
 Linear and conv layers are initialised as flax's ``Dense`` and ``Conv``
 are: LeCun-normal kernels (a normal truncated at two standard deviations,
 variance 1/fan_in, fan_in = k * k * C_in for a conv) and zero biases, drawn
@@ -57,9 +67,17 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
         nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def dense(in_size: int, out_size: int) -> nn.Linear:
+class Dense(nn.Linear):
+    """An ``nn.Linear`` whose forward is ``linear`` (the column-split layer
+    where ``shard_params_tp`` split it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self, x)
+
+
+def dense(in_size: int, out_size: int) -> Dense:
     """A float32 linear layer with flax ``Dense`` initialisation."""
-    layer = nn.Linear(in_size, out_size)
+    layer = Dense(in_size, out_size)
     init_dense_(layer)
     return layer
 
@@ -87,8 +105,15 @@ def init_conv_(layer: nn.Conv2d, generator: Optional[torch.Generator] = None) ->
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` in ``x``'s dtype: the float32 parameters are cast to it
-    (flax's ``Dense(dtype=...)``)."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    (flax's ``Dense(dtype=...)``). A column-split layer (its weight marked
+    ``tp_mesh``) computes its block of output columns and gathers the
+    others' (module docstring)."""
+    mesh = getattr(layer.weight, "tp_mesh", None)
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    if mesh is None:
+        return F.linear(x, layer.weight.to(x.dtype), bias)
+    y = F.linear(distributed.tp_copy(x, mesh), layer.weight.to(x.dtype), bias)
+    return distributed.tp_gather(y, mesh)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -107,7 +132,11 @@ def conv_nchw(layer: nn.Conv2d, x: torch.Tensor, padding: str = "VALID") -> torc
         x = F.pad(x, (left, right, top, bottom))
     elif padding != "VALID":
         raise ValueError(f"padding {padding!r} is not 'SAME' or 'VALID'")
-    return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype), stride=layer.stride)
+    bias = layer.bias
+    mesh = getattr(bias, "tp_mesh", None)
+    if mesh is not None:  # a tp-split bias: the ranks' blocks, whole
+        bias = distributed.tp_gather(bias, mesh)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias.to(x.dtype), stride=layer.stride)
 
 
 class NormLayer(nn.Module):

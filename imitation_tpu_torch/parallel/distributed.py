@@ -20,6 +20,13 @@ the same code, so both sets of names are kept.
   (adding zeros is exact), and a reduction of gradients or moments gathers
   the ranks' values and combines them in rank order on every rank, so that
   every rank gets the same bits whatever the backend's reduction order.
+  Each runs over one axis of the mesh: ``"dp"`` (the default: the ranks of
+  one tp index, which hold different rows) or ``"tp"`` (the ranks of one dp
+  row, which hold different output columns of the split dense layers).
+* ``tp_copy`` and ``tp_gather`` are the two halves of a column-split dense
+  layer (``models.networks.linear``): an identity whose backward sums the
+  input gradient over the tp ranks, and the all-gather of the output
+  columns whose backward keeps the rank's own block of the gradient.
 * ``local_rows(mesh)`` marks code that works on this rank's block of env
   rows of a global batch: inside it, a draw of ``n`` rows through
   ``draw_rows`` is this rank's block of a draw of ``n * W`` rows from the
@@ -40,7 +47,7 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=180)
 
-_LOCAL = {"device": None}
+_LOCAL = {"device": None, "timeout": DEFAULT_TIMEOUT}
 
 
 # ---------------------------------------------------------------------------
@@ -100,8 +107,14 @@ def initialize(
     kwargs = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
                             timeout=timeout, **kwargs)
-    _LOCAL["device"] = dev
+    _LOCAL["device"], _LOCAL["timeout"] = dev, timeout
     return dev
+
+
+def new_group(ranks: Sequence[int]):
+    """A process subgroup of ``ranks`` with the group's timeout. Every rank
+    must call it, for every subgroup, in the same order."""
+    return dist.new_group(list(ranks), timeout=_LOCAL["timeout"])
 
 
 def shutdown() -> None:
@@ -109,7 +122,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         barrier()
         dist.destroy_process_group()
-    _LOCAL["device"] = None
+    _LOCAL["device"], _LOCAL["timeout"] = None, DEFAULT_TIMEOUT
 
 
 def is_multiprocess() -> bool:
@@ -149,10 +162,40 @@ def local_env_count(global_num_envs: int) -> int:
 
 
 def make_global_mesh(tp: int = 1, device: Optional[Any] = None):
-    """The ('dp', 'tp') mesh over every process (``mesh.make_mesh``)."""
+    """The ('dp', 'tp') mesh over every process (``mesh.make_mesh``): ``tp``
+    consecutive ranks form a dp row, so with one process per GPU and ``tp``
+    dividing the GPUs of a host, tp never leaves a host."""
     from imitation_tpu_torch.parallel import mesh as mesh_mod
 
     return mesh_mod.make_mesh(tp=tp, device=device)
+
+
+def host_local_to_global(local_batch: Any, mesh) -> Any:
+    """This process's rows of a global dp-split batch (e.g. the rollout its
+    host envs produced), numpy arrays or tensors in dicts, lists and tuples,
+    as tensors on the mesh's device. A rank holds only its own block of a
+    split batch, so its local rows are its part of the global one: nothing
+    moves between ranks."""
+    import numpy as np
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(one(v) for v in x)
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            return torch.as_tensor(x).to(mesh.device)
+        return x
+
+    return one(local_batch)
+
+
+def global_to_host(tree: Any) -> Any:
+    """A replicated tree's tensors as numpy arrays (every rank gets the same
+    values). For a dp-split batch use ``process_allgather`` first."""
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.tree_map(lambda x: x.detach().cpu().numpy(), tree)
 
 
 def process_allgather(tree: Any, mesh=None) -> Any:
@@ -194,6 +237,14 @@ def shard_adversarial_trainer_global(trainer: Any, mesh) -> Any:
     return mesh_mod.shard_adversarial_trainer(trainer, mesh)
 
 
+def shard_params_tp_global(params: Any, mesh) -> Any:
+    """Every process passes the same full modules (same-seed construction)
+    and keeps its tp block of each split dense layer (``mesh.shard_params_tp``)."""
+    from imitation_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.shard_params_tp(params, mesh)
+
+
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
@@ -204,17 +255,32 @@ def _single(mesh) -> bool:
     return mesh is None or not mesh.distributed
 
 
+def _axis(mesh, axis: str):
+    """(size, this rank's index, process group) of ``mesh``'s ``axis``."""
+    if axis == "dp":
+        return mesh.dp, mesh.rank, mesh.dp_group
+    if axis == "tp":
+        return mesh.tp, mesh.tp_rank, mesh.tp_group
+    raise ValueError(f"axis must be 'dp' or 'tp', got {axis!r}")
+
+
 def _wire(dtype: torch.dtype) -> torch.dtype:
-    return torch.uint8 if dtype == torch.bool else dtype
+    """The dtype a tensor travels in: bools as bytes, half floats widened
+    (exactly) to float32, which every backend sums."""
+    if dtype == torch.bool:
+        return torch.uint8
+    if dtype in (torch.bfloat16, torch.float16):
+        return torch.float32
+    return dtype
 
 
-def all_gather_many(tensors: Sequence[torch.Tensor], mesh, dim: int = 0) -> List[torch.Tensor]:
-    """Each tensor's blocks from every rank, concatenated along ``dim`` in
-    rank order; one ``all_reduce`` per dtype."""
+def all_gather_many(tensors: Sequence[torch.Tensor], mesh, dim: int = 0, axis: str = "dp") -> List[torch.Tensor]:
+    """Each tensor's blocks from every rank of ``axis``, concatenated along
+    ``dim`` in rank order; one ``all_reduce`` per dtype."""
     tensors = list(tensors)
     if _single(mesh) or not tensors:
         return tensors
-    W, r = mesh.dp, mesh.rank
+    W, r, group = _axis(mesh, axis)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     groups = {}
     for i, t in enumerate(tensors):
@@ -223,7 +289,7 @@ def all_gather_many(tensors: Sequence[torch.Tensor], mesh, dim: int = 0) -> List
         sizes = [tensors[i].numel() for i in idxs]
         buf = torch.zeros((W, sum(sizes)), dtype=wire, device=device)
         buf[r] = torch.cat([tensors[i].reshape(-1).to(wire) for i in idxs])
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         off = 0
         for i, n in zip(idxs, sizes):
             t = tensors[i]
@@ -233,13 +299,13 @@ def all_gather_many(tensors: Sequence[torch.Tensor], mesh, dim: int = 0) -> List
     return out
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], mesh, average: bool = False) -> None:
-    """In place: each tensor becomes the sum (or mean) over ranks, added in
-    rank order on every rank."""
+def all_reduce_(tensors: Sequence[torch.Tensor], mesh, average: bool = False, axis: str = "dp") -> None:
+    """In place: each tensor becomes the sum (or mean) over the ranks of
+    ``axis``, added in rank order on every rank."""
     tensors = list(tensors)
     if _single(mesh) or not tensors:
         return
-    stacked = all_gather_many([t.unsqueeze(0) for t in tensors], mesh, dim=0)
+    stacked = all_gather_many([t.unsqueeze(0) for t in tensors], mesh, dim=0, axis=axis)
     for t, s in zip(tensors, stacked):
         total = s[0]
         for w in range(1, s.shape[0]):
@@ -250,8 +316,10 @@ def all_reduce_(tensors: Sequence[torch.Tensor], mesh, average: bool = False) ->
 def all_reduce_grads_(params: Sequence[torch.Tensor], mesh, extra: Sequence[torch.Tensor] = (),
                       average: bool = True) -> None:
     """The gradients of ``params`` (a missing one counts as zeros) and the
-    ``extra`` tensors, reduced over the ranks in one collective, in place:
-    the mean by default (each rank's loss is its share's mean)."""
+    ``extra`` tensors, reduced over the data-parallel ranks in one
+    collective, in place: the mean by default (each rank's loss is its
+    share's mean). A tp-split parameter's gradient is its block: the ranks
+    of one tp index hold the same block."""
     if _single(mesh):
         return
     for p in params:
@@ -265,6 +333,56 @@ def all_reduce_grads_(params: Sequence[torch.Tensor], mesh, extra: Sequence[torc
         n = t.numel()
         t.copy_(flat[off:off + n].reshape(t.shape).to(t.dtype))
         off += n
+
+
+# ---------------------------------------------------------------------------
+# The column-split dense layer's collectives (tp)
+# ---------------------------------------------------------------------------
+
+
+class _TPCopy(torch.autograd.Function):
+    """Identity; the backward sums the input gradient over the tp ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        all_reduce_([grad], ctx.mesh, axis="tp")
+        return grad, None
+
+
+class _TPGather(torch.autograd.Function):
+    """The ranks' column blocks concatenated in rank order on the last dim;
+    the backward keeps this rank's block of the gradient (every tp rank
+    computes the same loss from the gathered output)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh, ctx.n = mesh, y.shape[-1]
+        return all_gather_many([y], mesh, dim=-1, axis="tp")[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        r, n = ctx.mesh.tp_rank, ctx.n
+        return grad[..., r * n:(r + 1) * n].contiguous(), None
+
+
+def tp_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a column-split layer: ``x`` itself; its gradient is the
+    sum, in rank order, of the tp ranks' partial input gradients."""
+    return _TPCopy.apply(x, mesh)
+
+
+def tp_gather(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A column-split layer's output: every tp rank's block of the last dim,
+    in rank order."""
+    if _single(mesh):
+        raise RuntimeError("a tp-split layer runs only over its process group (parallel.mesh.make_mesh)")
+    return _TPGather.apply(y, mesh)
 
 
 def merge_moments(count: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor,

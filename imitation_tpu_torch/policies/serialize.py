@@ -10,12 +10,19 @@ on the CPU. ``load_policy_from_path`` also reads a directory the JAX package
 wrote (``policy_config.json`` and ``variables.msgpack``, flax's msgpack,
 read by ``util.flax_msgpack`` and carried over by ``convert``), as the
 repo's experts under ``output/experts/<env>/policy`` are.
-``load_policy`` looks loaders up by type: ``random``, ``zero`` and ``saved``;
-``SavePolicyCallback`` saves a policy every few learner updates.
+``load_policy`` looks loaders up by type: ``random``, ``zero``, ``saved``,
+``ppo`` and ``sac`` (all three: a Stable-Baselines3 ``model.zip``, or a
+directory holding one, through ``sb3_interop``; any other path as
+``load_policy_from_path``), and ``ppo-huggingface`` / ``sac-huggingface``,
+which name a HuggingFace-hub expert and raise the JAX package's offline
+``RuntimeError`` without trying a download (no network, no
+``huggingface_hub``); ``SavePolicyCallback`` saves a policy every few
+learner updates.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Any, Callable, Dict, Optional, Union
@@ -151,6 +158,15 @@ def _load_zero(venv: VectorEnv, **kwargs) -> ZeroPolicy:
 
 
 def _load_saved(venv: VectorEnv, path: str, **kwargs) -> SavedPolicy:
+    zip_path = None
+    if path.endswith(".zip") and os.path.exists(path):
+        zip_path = path
+    elif os.path.isdir(path) and os.path.exists(os.path.join(path, "model.zip")):
+        zip_path = os.path.join(path, "model.zip")
+    if zip_path is not None:
+        from imitation_tpu_torch.policies import sb3_interop
+
+        return sb3_interop.load_sb3_policy_for_env(zip_path, venv)
     policy = load_policy_from_path(path, device=venv.device)
     if policy.observation_space.shape != venv.observation_space.shape:
         raise ValueError(
@@ -160,15 +176,38 @@ def _load_saved(venv: VectorEnv, path: str, **kwargs) -> SavedPolicy:
     return policy
 
 
+def _hf_model_name(algo: str, env_name: str) -> str:
+    """huggingface_sb3 naming: '/' in env ids becomes '-'."""
+    return f"{algo}-{env_name.replace('/', '-')}"
+
+
+def _load_huggingface(venv: VectorEnv, env_name: str, algo: str = "ppo",
+                      organization: str = "HumanCompatibleAI", **kwargs):
+    """An SB3 expert of the HuggingFace hub: the port downloads nothing, so
+    this raises the JAX package's offline error, which names the way to
+    load a model zip fetched by hand."""
+    repo_id = f"{organization}/{_hf_model_name(algo, env_name)}"
+    raise RuntimeError(
+        f"could not fetch {repo_id} from the HuggingFace hub (offline?). "
+        "Download the model zip manually and load it with "
+        "policy_type='ppo' path=<model.zip>."
+    )
+
+
 policy_registry: Dict[str, Callable[..., Any]] = {
     "random": _load_random,
     "zero": _load_zero,
+    "ppo": _load_saved,
+    "sac": _load_saved,
     "saved": _load_saved,
+    "ppo-huggingface": functools.partial(_load_huggingface, algo="ppo"),
+    "sac-huggingface": functools.partial(_load_huggingface, algo="sac"),
 }
 
 
 def load_policy(policy_type: str, venv: VectorEnv, **kwargs):
-    """The policy of ``policy_type`` for ``venv`` (``path=`` for ``saved``)."""
+    """The policy of ``policy_type`` for ``venv`` (``path=`` for ``saved``,
+    ``ppo`` and ``sac``)."""
     if policy_type not in policy_registry:
         raise KeyError(f"unknown policy type {policy_type!r}; known: {sorted(policy_registry)}")
     return policy_registry[policy_type](venv, **kwargs)

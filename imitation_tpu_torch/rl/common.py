@@ -15,18 +15,23 @@ rate is a constant or a schedule of the update count (``linear_schedule``,
 Over data-parallel ranks a learner reduces the gradients over the ranks
 (``parallel.distributed.all_reduce_grads_``) before ``Adam.step``, which
 clips by the global norm of what it reads: clipping each rank's gradients
-first would give another step.
+first would give another step. Where parameters are tp-split
+(``parallel.mesh.shard_params_tp``) each rank holds a block of their
+gradients, and the norm is that of the whole gradient, as optax computes
+it: the split blocks' squares summed over the tp ranks, the replicated
+parameters' counted once (``params_global_norm``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from imitation_tpu_torch.envs.vector import VecEnvState
+from imitation_tpu_torch.parallel import distributed
 
 # Relabelling reward function over a batch of transitions:
 # (reward_params, obs, acts, next_obs, dones) -> rews. ``reward_params`` is
@@ -69,6 +74,22 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def params_global_norm(params: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``global_norm`` of the whole of ``tensors`` (one per parameter of
+    ``params``, e.g. their gradients): where a parameter is tp-split its
+    tensor is this rank's block, whose squares are summed over the tp ranks
+    in rank order (a collective) before they join the replicated ones'."""
+    tensors = list(tensors)
+    split = [t for p, t in zip(params, tensors) if getattr(p, "tp_mesh", None) is not None]
+    if not split:
+        return global_norm(tensors)
+    mesh = next(p.tp_mesh for p in params if getattr(p, "tp_mesh", None) is not None)
+    sq = torch.stack([torch.sum(t * t) for t in split]).sum().reshape(1)
+    distributed.all_reduce_([sq], mesh, axis="tp")
+    whole = [t for p, t in zip(params, tensors) if getattr(p, "tp_mesh", None) is None]
+    return torch.sqrt(sum(torch.sum(t * t) for t in whole) + sq[0])
+
+
 # A learning-rate schedule: the rate of an update, from the number of
 # updates before it (optax's ``count``, 0 for the first).
 Schedule = Callable[[int], float]
@@ -97,7 +118,8 @@ class Adam(torch.optim.Optimizer):
 
     ``lr`` is a float or a ``Schedule``. ``step()`` reads ``p.grad`` of every
     parameter, applies the update in place and returns the global norm of
-    the gradients before clipping. It never waits for the device.
+    the gradients before clipping (of the whole gradient where parameters
+    are tp-split: ``params_global_norm``). It never waits for the device.
     """
 
     def __init__(
@@ -139,7 +161,7 @@ class Adam(torch.optim.Optimizer):
         (group,) = self.param_groups
         params = group["params"]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        norm = global_norm(grads)
+        norm = params_global_norm(params, grads)
         if self.max_grad_norm is not None:
             trigger = norm < self.max_grad_norm
             grads = [torch.where(trigger, g, (g / norm) * self.max_grad_norm) for g in grads]

@@ -429,7 +429,7 @@ class PPO:
                     aux["grad_norm"] = optimizer.step()
                 else:
                     with torch.no_grad():
-                        aux["grad_norm"] = common.global_norm(p.grad for p in params)
+                        aux["grad_norm"] = common.params_global_norm(params, [p.grad for p in params])
                 aux["loss"] = loss
                 auxs.append(aux)
 

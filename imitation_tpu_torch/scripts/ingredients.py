@@ -32,11 +32,6 @@ EVAL_DEFAULTS = {
     "n_episodes_eval": 50,
 }
 
-# Policy types the JAX package loads from Stable-Baselines3 ``model.zip``
-# files; the port has no reader of that format yet.
-_SB3_POLICY_TYPES = ("ppo", "sac")
-
-
 def make_venv_from_config(config: Dict[str, Any]) -> VectorEnv:
     """The env on ``config["device"]``: CUDA when it is None, raising where
     there is none (``VectorEnv`` resolves it with ``default_device``)."""
@@ -53,18 +48,16 @@ def load_expert_policy(config: Dict[str, Any], venv: VectorEnv):
     """The configured expert's rollout closure.
 
     ``expert.policy_type``: ``scripted`` (a closed-form controller),
-    ``saved`` (``loader_kwargs.path``, a directory either package saved),
-    ``random`` or ``zero``.
+    ``ppo`` / ``sac`` / ``saved`` (``loader_kwargs.path``: a
+    Stable-Baselines3 ``model.zip``, a directory holding one, or a policy
+    directory either package saved), ``ppo-huggingface`` /
+    ``sac-huggingface`` (``loader_kwargs.env_name``; raise offline, see
+    ``policies.serialize``), ``random`` or ``zero``.
     """
     expert_cfg = config.get("expert", {})
     policy_type = expert_cfg.get("policy_type", "scripted")
     if policy_type == "scripted":
         return scripted_experts.expert_for(config["env_name"])
-    if policy_type in _SB3_POLICY_TYPES:
-        raise ValueError(
-            f"expert.policy_type={policy_type!r} loads a Stable-Baselines3 model.zip, "
-            "which the port does not read yet; use 'saved' with a policy directory"
-        )
     loader_kwargs = dict(expert_cfg.get("loader_kwargs", {}))
     return policy_serialize.load_policy(policy_type, venv, **loader_kwargs).sample_fn()
 

@@ -130,16 +130,16 @@ def save_state(path: str, state: Any) -> None:
     """Writes a training state to the file ``path`` (atomically: a
     temporary file renamed over it).
 
-    A state split over data-parallel ranks (its ``mesh`` set) is a
-    collective: every rank calls this, the split rows are gathered into
+    A state split over ranks (its ``mesh`` set) is a collective: every
+    rank calls this, the split rows and tp-split columns are gathered into
     the one-process form, rank 0 writes it and the others wait at a
-    barrier. It restores at any world size: into an unsplit template, then
+    barrier. It restores at any layout: into an unsplit template, then
     placed again (``parallel.mesh.shard_rl_state`` / ``shard_sac_state``)."""
     from imitation_tpu_torch.parallel import distributed, mesh as mesh_mod
 
     mesh = getattr(state, "mesh", None)
     state = mesh_mod.unshard_state(state)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or (mesh.rank == 0 and mesh.tp_rank == 0):
         path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp"

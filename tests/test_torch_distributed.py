@@ -7,7 +7,8 @@ Two launches of ranks (``tests/torch_dist_worker.py``; each joins through a
 most 120 s and the launch 240 s):
 
 * W = 2: the counterpart of tests/parallel/test_distributed.py's psum step
-  against its closed form, the collectives and their errors; PPO
+  against its closed form, the collectives, their errors and a
+  ``dp=1 x tp=2`` mesh with a tp placement; PPO
   ``process_chunk`` with feature and reward normalization, plain and with a
   ``target_kl`` that stops early; GAIL ``train_fused`` over 2 rounds with
   the JAX package's draws fed in (its epoch permutations and disc-step
@@ -55,9 +56,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 W2_CASES = "collectives,ppo,gail_fixed,sac,reward_basic,reward_ensemble,rlhf"
 
 
-def _jax_gail(tmp_path):
+def _jax_gail(tmp_path, tp=1):
     """The JAX trainer, the inputs of the port's ranks (its weights, its
-    draws, the fixed chunk), and a runner of its sharded ``train_fused``."""
+    draws, the fixed chunk), and a runner of its sharded ``train_fused`` on
+    ``make_mesh(dp=2, tp=tp)``."""
     T, Bv, n_demo, B, rounds = 16, 8, 300, 64, 2
     jtr, _ = _trainers(tmp_path, n_steps=T, num_envs=Bv, n_demo=n_demo)
     if jtr.gen_state is None:
@@ -82,7 +84,7 @@ def _jax_gail(tmp_path):
     )
 
     def run():
-        m = jax_mesh.make_mesh(dp=2, tp=1, devices=jax.devices()[:2])
+        m = jax_mesh.make_mesh(dp=2, tp=tp, devices=jax.devices()[:2 * tp])
         jax_mesh.shard_adversarial_trainer(jtr, m)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax_rollout, "collect", lambda venv, fn, params, state, n, key: (state, jchunk))
@@ -163,7 +165,7 @@ def test_collectives_against_closed_form(two_ranks):
     x = np.concatenate([np.arange(16, dtype=np.float32).reshape(4, 4) + 100.0 * pid for pid in range(2)])
     w = np.ones(4, np.float32)
     expected_w = w - 0.01 * 2.0 * (x.T @ (x @ w)) / x.shape[0]
-    for r in (r0, r1):
+    for rank, r in enumerate((r0, r1)):
         np.testing.assert_array_equal(r["w"], r0["w"])
         np.testing.assert_allclose(r["w"], expected_w, rtol=1e-4)
         np.testing.assert_allclose(r["full"], x, rtol=0)
@@ -178,7 +180,8 @@ def test_collectives_against_closed_form(two_ranks):
         assert r["local_envs"] == 4
         errors = r["errors"]
         assert errors["env_count"][0] == "ValueError" and "not divisible by 2" in errors["env_count"][1]
-        assert errors["tp"][0] == "NotImplementedError" and "ROADMAP A11" in errors["tp"][1]
+        assert errors["tp"] is None  # the tp placement over a dp=1 x tp=2 mesh of both ranks
+        assert r["tp_mesh"] == ({"dp": 1, "tp": 2}, 0, rank)
         assert errors["dp_tp"][0] == "ValueError" and "dp*tp = 3*1 != 2" in errors["dp_tp"][1]
     whole = np.arange(12).reshape(4, 3)
     np.testing.assert_array_equal(r0["draw"], whole[:2])

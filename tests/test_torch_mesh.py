@@ -56,9 +56,15 @@ def test_make_mesh_errors_match_jax():
         port_err = _raises(lambda: mesh_mod.make_mesh(device="cpu", **kwargs))
         assert jax_err[0] is port_err[0] is ValueError, kwargs
         assert port_err[1].startswith(jax_err[1].split(" devices")[0]), (port_err, jax_err)
-    # tp > 1 at a world that fits it: the ROADMAP item, not a silent replication.
-    err = _raises(lambda: mesh_mod.shard_params_tp(torch.nn.Linear(2, 2), Mesh(dp=1, tp=2)))
-    assert err[0] is NotImplementedError and "ROADMAP A11" in err[1]
+    # tp > 1 at a world that fits it: each tp rank keeps its block of output
+    # rows of the dense weight and bias, marked with the mesh.
+    for tp_rank in range(2):
+        layer = torch.nn.Linear(2, 2)
+        weight, bias = layer.weight.detach().clone(), layer.bias.detach().clone()
+        assert _raises(lambda: mesh_mod.shard_params_tp(layer, Mesh(dp=1, tp=2, tp_rank=tp_rank))) is None
+        np.testing.assert_array_equal(layer.weight.detach().numpy(), weight[tp_rank:tp_rank + 1].numpy())
+        np.testing.assert_array_equal(layer.bias.detach().numpy(), bias[tp_rank:tp_rank + 1].numpy())
+        assert mesh_mod.is_tp_split(layer.weight) and layer.weight.tp_mesh.tp_rank == tp_rank
     assert distributed.local_env_count(8) == 8 and not distributed.is_multiprocess()
 
 

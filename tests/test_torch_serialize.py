@@ -136,7 +136,10 @@ def test_load_policy_registry(tmp_path):
     with pytest.raises(ValueError, match="does not match"):
         policy_serialize.load_policy("saved", other, path=str(tmp_path / "p"))
     with pytest.raises(KeyError):
-        policy_serialize.load_policy("ppo-huggingface", venv)
+        policy_serialize.load_policy("no-such-type", venv)
+    # A HuggingFace-hub expert is registered, and refused offline without a download.
+    with pytest.raises(RuntimeError, match="policy_type='ppo' path=<model.zip>"):
+        policy_serialize.load_policy("ppo-huggingface", venv, env_name="Pendulum-v1")
     with pytest.raises(TypeError):
         policy_serialize.save_policy(str(tmp_path / "r"), rand)
 

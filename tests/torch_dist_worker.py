@@ -1,12 +1,13 @@
 """The rank processes of tests/test_torch_distributed.py, and the cases they run.
 
 Launched as ``python -m tests.torch_dist_worker <dir> <case>,<case>,...`` with
-``RANK`` and ``WORLD_SIZE`` set (``launch``): each rank joins a gloo group
-through a ``FileStore`` in ``<dir>``, runs the cases over
-``parallel.mesh.make_mesh()`` on the CPU and writes ``<dir>/<case>_<rank>.pt``.
-The parent test runs the same case functions with ``mesh=None`` for the
-one-process run. This module imports the port only, not JAX: the JAX
-package's draws and weights come in ``<dir>/inputs.pt``.
+``RANK``, ``WORLD_SIZE`` and ``TP`` set (``launch``): each rank joins a gloo
+group through a ``FileStore`` in ``<dir>``, runs the cases over
+``parallel.mesh.make_mesh(tp=TP)`` on the CPU and writes
+``<dir>/<case>_<rank>.pt``. The parent test runs the same case functions with
+``mesh=None`` for the one-process run. This module imports the port only,
+not JAX: the JAX package's draws and weights come in ``<dir>/inputs.pt``.
+Parameters are recorded whole: a tp-split one is gathered over its tp ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from imitation_tpu_torch.parallel import distributed
 from imitation_tpu_torch.parallel import mesh as mesh_mod
 from imitation_tpu_torch.rewards import reward_nets
 from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
+from imitation_tpu_torch.rl import common as rl_common
 from imitation_tpu_torch.rl.ppo import PPO, PPOConfig
 from imitation_tpu_torch.rl.sac import SAC, SACConfig
 from imitation_tpu_torch.testing import experts
@@ -46,14 +48,14 @@ LAUNCH_TIMEOUT = 240  # seconds a launch of ranks may take in all
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)  # any one collective
 
 
-def launch(out_dir: str, world_size: int, cases: str) -> None:
-    """Runs ``world_size`` ranks of this module on ``cases`` and waits for
-    them, killing every rank when any fails or the launch outlasts
-    ``LAUNCH_TIMEOUT``."""
+def launch(out_dir: str, world_size: int, cases: str, tp: int = 1) -> None:
+    """Runs ``world_size`` ranks of this module on ``cases`` over a
+    ``dp x tp`` mesh and waits for them, killing every rank when any fails
+    or the launch outlasts ``LAUNCH_TIMEOUT``."""
     procs = []
     for rank in range(world_size):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
-                   OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+                   TP=str(tp), OMP_NUM_THREADS="1", PYTHONPATH=REPO)
         env.pop("MASTER_ADDR", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tests.torch_dist_worker", out_dir, cases], cwd=REPO, env=env,
@@ -77,7 +79,9 @@ def load(out_dir: str, case: str, world_size: int):
 
 
 def params(module: torch.nn.Module) -> Dict[str, np.ndarray]:
-    return {k: v.detach().clone().numpy() for k, v in module.named_parameters()}
+    """The parameters, tp-split ones gathered whole (a collective where any is split)."""
+    names = dict(module.named_parameters())
+    return {k: v.clone().numpy() for k, v in mesh_mod.full_state_dict(module).items() if k in names}
 
 
 def nudge_(modules, rel: float) -> None:
@@ -137,8 +141,10 @@ def collectives_case(mesh) -> Dict[str, Any]:
     out["replicated"] = distributed.replicate_global(torch.full((3,), float(r + 1)), mesh).numpy()
     out["local_envs"] = distributed.local_env_count(8)
     errors = {}
+    tp_mesh = mesh_mod.make_mesh(dp=1, tp=W, device="cpu")
+    out["tp_mesh"] = (tp_mesh.shape, tp_mesh.rank, tp_mesh.tp_rank)
     for name, fn in (("env_count", lambda: distributed.local_env_count(4 * W + 1)),
-                     ("tp", lambda: mesh_mod.make_mesh(dp=1, tp=W, device="cpu")),
+                     ("tp", lambda: mesh_mod.shard_params_tp(torch.nn.Linear(2, 2 * W), tp_mesh)),
                      ("dp_tp", lambda: mesh_mod.make_mesh(dp=W + 1, device="cpu"))):
         try:
             fn()
@@ -406,6 +412,117 @@ def tutorial_case(mesh, out_dir: str) -> Dict[str, Any]:
     return out
 
 
+# -- tp: the column-split layer, its clip, and the nets split ----------------------
+
+TP_MLP = (5, (8, 6), 4)  # in, hidden, out: every layer's output divides by tp = 2
+
+
+def tp_mlp() -> networks.MLP:
+    mlp = networks.MLP(TP_MLP[0], TP_MLP[1], TP_MLP[2], activation=torch.tanh)
+    mlp.reset_parameters(torch.Generator().manual_seed(3))
+    return mlp
+
+
+def tp_layer_inputs():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(7, TP_MLP[0])).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(7, TP_MLP[2])).astype(np.float32))
+    return x, c
+
+
+def tp_layer_case(mesh) -> Dict[str, Any]:
+    """An MLP whose three layers are column-split (or whole without a mesh):
+    its output and the input, weight and bias gradients of ``sum(out * c)``
+    (weights gathered whole); then one clipped Adam step from those
+    gradients per max norm, its norm and its parameters."""
+    x, c = tp_layer_inputs()
+    out = {}
+    mlp = tp_mlp()
+    if mesh is not None:
+        mesh_mod.shard_params_tp([mlp], mesh)
+        out["split"] = sorted(k for k, p in mlp.named_parameters() if mesh_mod.is_tp_split(p))
+    x.requires_grad_(True)
+    y = mlp(x)
+    (y * c).sum().backward()
+    out.update(y=y.detach().numpy().copy(), x_grad=x.grad.numpy().copy())
+    grads = {k: p.grad for k, p in mlp.named_parameters()}
+    split = [k for k, p in mlp.named_parameters() if mesh_mod.is_tp_split(p)]
+    whole = distributed.all_gather_many([grads[k] for k in split], mesh, dim=0, axis="tp") if split else []
+    grads.update(zip(split, whole))
+    out["grads"] = {k: g.numpy().copy() for k, g in grads.items()}
+    out["params"] = params(mlp)
+    for max_norm in (0.05, 1e6):  # the clip active, then not
+        net = tp_mlp()
+        opt = rl_common.Adam(net.parameters(), 1e-2, max_grad_norm=max_norm)
+        if mesh is not None:
+            mesh_mod.shard_params_tp([net, opt], mesh)
+        (net(x.detach()) * c).sum().backward()
+        norm = opt.step()
+        out[f"clip_{max_norm:g}"] = dict(norm=float(norm), params=params(net))
+    return out
+
+
+def tp_nets(generator: torch.Generator) -> Dict[str, Any]:
+    """The nets of the tp path, drawn from ``generator``: the gail_cartpole
+    actor-critic and discriminator, SAC's actor and critic, the reward nets
+    of preference comparisons and AIRL (box spaces of 3 and 2), and a CNN
+    reward net (conv biases split, kernels whole)."""
+    from imitation_tpu_torch.envs.classic import CartPole
+    from imitation_tpu_torch.rl.sac import SACActor, SACCritic
+
+    cart = CartPole()
+    box3, box2 = Space.box(-2.0, 2.0, (3,)), Space.box(-2.0, 2.0, (2,))
+    nets = {
+        "policy": ActorCriticPolicy(cart.observation_space, cart.action_space, hid_sizes=(32, 32)),
+        "disc": BasicRewardNet(cart.observation_space, cart.action_space, normalize_input=False),
+        "sac_actor": SACActor(3, 2, (32, 32)),
+        "sac_critic": SACCritic(3, 2, (32, 32)),
+        "basic": reward_nets.BasicRewardNet(box3, box2, normalize_input=True),
+        "shaped": reward_nets.BasicShapedRewardNet(box3, box2),
+        "ensemble": reward_nets.RewardEnsemble(box3, box2, num_members=3),
+        "cnn": reward_nets.CnnRewardNet(Space.box(0.0, 1.0, (12, 12, 3)), Space.discrete(4), hid_channels=(4, 6)),
+    }
+    for name, net in nets.items():
+        if hasattr(net, "init"):
+            net.init(generator)
+        else:
+            net.reset_parameters(generator)
+    return nets
+
+
+def tp_net_outputs(nets) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(5)
+    cart_obs = torch.from_numpy(rng.normal(scale=0.5, size=(9, 4)).astype(np.float32))
+    cart_acts = torch.from_numpy(rng.integers(0, 2, 9).astype(np.int32))
+    obs = torch.from_numpy(rng.normal(size=(9, 3)).astype(np.float32))
+    acts = torch.from_numpy(rng.normal(size=(9, 2)).astype(np.float32))
+    dones = torch.from_numpy((rng.random(9) < 0.3).astype(np.float32))
+    with torch.no_grad():
+        dist, value = nets["policy"].dist_and_value(cart_obs)
+        actor = nets["sac_actor"](obs)
+        out = dict(policy_logits=dist.logits, policy_value=value,
+                   disc=nets["disc"](cart_obs, cart_acts, cart_obs, dones),
+                   sac_mean=actor.mean, sac_log_std=actor.log_std, sac_q=nets["sac_critic"](obs, acts))
+        for name in ("basic", "shaped", "ensemble"):
+            out[name] = nets[name](obs, acts, obs, dones)
+        frames = torch.from_numpy(rng.random((9, 12, 12, 3)).astype(np.float32))
+        out["cnn"] = nets["cnn"](frames, torch.from_numpy(rng.integers(0, 4, 9).astype(np.int32)), frames, dones)
+    return {k: v.numpy().copy() for k, v in out.items()}
+
+
+def tp_nets_case(mesh) -> Dict[str, Any]:
+    """Each net of the tp path before and after ``shard_params_tp``: the
+    names it split and its outputs, whole and split."""
+    nets = tp_nets(torch.Generator().manual_seed(6))
+    whole = tp_net_outputs(nets)
+    for net in nets.values():
+        mesh_mod.shard_params_tp([net], mesh)
+    split = {name: sorted(k for k, p in net.named_parameters() if mesh_mod.is_tp_split(p))
+             for name, net in nets.items()}
+    return dict(whole=whole, split_outputs=tp_net_outputs(nets), split=split,
+                shapes={name: {k: tuple(p.shape) for k, p in net.named_parameters()} for name, net in nets.items()})
+
+
 # -- the rank process ---------------------------------------------------------------
 
 
@@ -413,7 +530,7 @@ def main(out_dir: str, cases: str) -> None:
     torch.set_num_threads(1)
     distributed.initialize("gloo", init_method="file://" + os.path.join(out_dir, "store"), device="cpu",
                            timeout=GROUP_TIMEOUT)
-    mesh = mesh_mod.make_mesh(device="cpu")
+    mesh = mesh_mod.make_mesh(tp=int(os.environ.get("TP", "1")), device="cpu")
     inputs_path = os.path.join(out_dir, "inputs.pt")
     inputs = torch.load(inputs_path, weights_only=False) if os.path.exists(inputs_path) else {}
     runners = {
@@ -426,10 +543,12 @@ def main(out_dir: str, cases: str) -> None:
         "reward_ensemble": lambda: reward_case(mesh, "ensemble"),
         "tutorial": lambda: tutorial_case(mesh, out_dir),
         "rlhf": lambda: rlhf_case(mesh),
+        "tp_layer": lambda: tp_layer_case(mesh),
+        "tp_nets": lambda: tp_nets_case(mesh),
     }
     for case in cases.split(","):
         result = runners[case]()
-        torch.save(result, os.path.join(out_dir, f"{case}_{mesh.rank}.pt"))
+        torch.save(result, os.path.join(out_dir, f"{case}_{distributed.process_index()}.pt"))
     distributed.shutdown()
 
 
