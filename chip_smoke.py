@@ -23,13 +23,15 @@ Phases, each timed and printed on its own line:
    launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
    1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
    bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
-   [., 2, 2]), alone and mixed with word fields and offset bases;
+   [., 2, 2]), alone and mixed with word fields and offset bases; the
+   tutorials' GAIL / AIRL disc step (demo 4,800 rows, replay 1,024, B = 256);
    out-of-range indices. Times each kernel and its plain version and, for
    B2, the yardstick of one ``index_select`` x 2 + ``cat`` per field, with
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
    [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
    [128, 8], density's [64, 16], the pixel tutorial's [32, 8] and
-   gail_cartpole's [128, 64], B2 per disc step (the CLI defaults',
+   gail_cartpole's [128, 64], the tutorials' [64, 8] and [40, 16], B2 per
+   disc step (the CLI defaults', the tutorials',
    gail_cartpole's, the host GAIL's and both image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
@@ -63,16 +65,20 @@ Phases, each timed and printed on its own line:
    batch 64, l2 1e-4, 2 epochs (the DiagGaussian branch).
 11. dagger_cartpole: ``SimpleDAggerTrainer.train`` on 16 device CartPole-v1
    envs with the scripted expert, BC at batch 16, l2 1e-4, lr 1e-3,
-   ``LinearBetaSchedule(15)``, the CLI's 4000 timesteps, 3 episodes and
-   500 timesteps a round, in a temporary scratch dir; then
-   ``save_trainer``, ``reconstruct_trainer`` and one more round.
+   ``LinearBetaSchedule(15)``, 2000 timesteps, 3 episodes and 500
+   timesteps a round, episodes cut at 200 steps (cut from the CLI's 4000
+   timesteps and CartPole-v1's 500 steps, one round of 8,000 rows, to make
+   room for the examples: one round of 3,200 rows, 2.5x fewer BC steps),
+   in a temporary scratch dir; then ``save_trainer``,
+   ``reconstruct_trainer`` and one more round.
 12. dagger_pendulum: the same on Pendulum-v1, ``ExponentialBetaSchedule(0.7)``
    and 2000 timesteps.
 13. sac_pendulum: ``SAC.learn`` on 16 device Pendulum-v1 envs at the
    expert-training settings (train_freq 16, 256 gradient steps of batch 256
    a round, (256, 256) actor and critics, lr 3e-4), ``learning_starts`` cut
-   to 2,560: 10 rounds with masked updates, then 3 learning rounds (6 until
-   PR 13; cut in PR 14 to make room for the host phases) under the
+   to 1,280: 5 rounds with masked updates (cut from 10 to make room for the
+   examples), then 3 learning rounds (cut from 6 to make room for the host
+   phases) under the
    CUDA sync debug mode (asserted: no host read); s/round, updates/s, the
    actor's forward on the card against the CPU on 4096 replay rows, and one
    profiled round split by ``sac.collect``, ``sac.buffer_store`` and
@@ -125,8 +131,8 @@ Phases, each timed and printed on its own line:
 22. density_pendulum: run_small_algos.py's density run at its widths (16
    envs, the scripted expert's 20+ episodes, STATE_ACTION_DENSITY,
    bandwidth 0.5; PPO n_steps 64, 8 minibatches x 10 epochs, lr 3e-4,
-   gamma 0.95), cut to 8,192 timesteps (8 PPO iterations; 16 until PR 13,
-   cut in PR 14 to make room for the host phases): the KDE
+   gamma 0.95), cut to 4,096 timesteps (4 PPO iterations, cut from 16 to
+   make room for the host phases and the examples): the KDE
    reward on the card against a CPU copy for each density type and for
    non-stationary density, expert above random transitions, B1 launched
    once per iteration at [64, 16], s per iteration, one profiled
@@ -150,9 +156,10 @@ Phases, each timed and printed on its own line:
    ``ShapedRewardNet(CnnRewardNet, BasicPotentialCNN)`` on the same demos;
    the test reward against the train reward.
 26. rlhf_pixel_cartpole: the ported tutorial's loop (``build``: 8 envs,
-   ``CnnRewardNet(hid_channels=(8, 8))``, PPO n_steps 32) at half its
-   ``__main__`` budget (15,000 of 30,000 timesteps, its 300 comparisons):
-   B1 at [32, 8] once per PPO iteration (90); the reward's fit printed (CartPole's
+   ``CnnRewardNet(hid_channels=(8, 8))``, PPO n_steps 32) at an eighth of
+   its ``__main__`` budget (4,000 of 30,000 timesteps, cut from 15,000 to
+   make room for the examples; its 300 comparisons): B1 at [32, 8] once per PPO iteration (about 24; the
+   examples run the tutorial's main as well); the reward's fit printed (CartPole's
    reward is 1 a step, so the synthetic preferences are coin flips), one
    reward update on the card against a CPU copy, and a 3-member
    ``RewardEnsemble`` of the tutorial's ``CnnRewardNet``s: fragment
@@ -233,10 +240,10 @@ Phases, each timed and printed on its own line:
    lambda 0.95, gamma 0.95, max_grad_norm 0.8, vf 0.115; demo batch 8192,
    replay 512 rows, 8 disc updates; 64 scripted episodes (12,800 rows)
    made through ``generate_trajectories_host``. As bench.py:187-196,
-   serialized and overlapped (``overlap_collection``) alternately on two
-   fresh trainers each: a warm-up round, 2 timed rounds (B1 once at
-   [64, 64] and B2 8 times a round, asserted), and on the second pair 2
-   rounds under the generator's ``PhaseTimer`` (host_collect and
+   serialized and overlapped (``overlap_collection``) on a fresh trainer
+   each (cut from two each to make room for the examples): a warm-up round, 2 timed rounds (B1 once at [64, 64] and B2
+   8 times a round, asserted), then 2 rounds under the generator's
+   ``PhaseTimer`` (host_collect and
    device_update serialized, collect_join overlapped, disc_update both); s/round, the overlap
    speedup, the thread counts; parameters, buffers and every chunk field
    on cuda (asserted).
@@ -294,6 +301,29 @@ Phases, each timed and printed on its own line:
    4,096 seeded CartPole observations within 1e-5, actions equal but at
    ties), then ``train_imitation bc with bc_cartpole bc.n_epochs=1
    expert.policy_type=ppo`` from it through ``ex.run_cli`` (COMPLETED).
+   The BC run of cli_imitation_cartpole also logs ``tensorboard``: its
+   events file is read back record by record, each length's and data's
+   masked CRC-32C checked by a bitwise CRC of this script's own.
+46. examples (ex_t01_bc ... ex_rlhf_example, after the CLI phases): every
+   ported example's ``main(device=cuda:0)`` (imitation_tpu_torch/examples:
+   tutorials 1-10, 5a and 8a, the quickstart and the RLHF example; not 11,
+   which the dp phases cover) at tests/test_examples.py's budgets (the
+   quickstart's 30 fused GAIL and 10 AIRL rounds, the RLHF example's 20,000
+   timesteps and 200 comparisons, whole), widths unchanged: seconds, PPO
+   iterations and disc steps (``PPO.process_chunk`` and ``_disc_step``
+   calls, counted here) and the kernels' launches, asserted one B1 per PPO
+   iteration and one B2 per disc step (the GAIL and AIRL tutorials and the
+   quickstart launch both, at [128, 8] and B = 256; the RLHF tutorials,
+   density and the custom-env tutorial B1 only, at [64, 8], [32, 8] and
+   [40, 16]); the line each prints.
+47. interactive: ``cartpole_interactive_policy`` over 4 device CartPole envs
+   through ``as_rollout_fn`` for 16 steps, fed scripted keys (an invalid
+   one before every third answer): the actions int32 on the card and equal
+   to the keys', one prompt per query and per invalid key.
+48. hf_roundtrip: the scripted experts' card rollouts on CartPole (32
+   episodes) and Pendulum (64) through ``data.serialize.save`` (the port's
+   own HuggingFace writer) and ``load``: the three files, float64 rewards in
+   the features, every array equal with its dtype; seconds and bytes.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -332,7 +362,10 @@ airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
 bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
-cli_preference_pendulum, gail_host_pendulum, rlhf_host_pendulum, dp_gail_w1,
+cli_preference_pendulum, the examples that launch a kernel (ex_t03_gail,
+ex_t04_airl, ex_t05_rlhf, ex_t05a_rlhf_cnn, ex_t07_density,
+ex_t10_custom_env, ex_quickstart, ex_rlhf_example), gail_host_pendulum,
+rlhf_host_pendulum, dp_gail_w1,
 dp_gail_w2_rank0, dp_gail_w2_rank1, dp_gail_nccl_w1, tp_gail_rank0-3,
 tp_resume_w1; a rank counts its own launches and reports them) is driven
 with the kernels' launch counts set to 0 just before it and read just after: B2 must launch once per disc step (never in
@@ -352,6 +385,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -464,7 +498,7 @@ def check_kernels(torch, dev):
     # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
     # the RLHF CLI's, density's and the pixel tutorial's PPO iterations
     timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64),
-             (128, 32))
+             (128, 32), (64, 8), (40, 16))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl,
     # gail_pixel_cartpole), [256, 8] (airl_cli, airl_pixel_cartpole), [64, 32]
@@ -472,8 +506,12 @@ def check_kernels(torch, dev):
     # (density_pendulum), [32, 8] (rlhf_pixel_cartpole) and [128, 64]
     # (cli_gail_cartpole; the CLI's other PPO paths run [256, 8] and
     # [128, 8]) and [128, 32] (each rank of dp_gail's two and of tp_gail's
-    # four); then the HalfCheetah path's, edge shapes and a large one.
-    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64), (128, 32))
+    # four), [64, 8] (the RLHF and density tutorials' and the RLHF
+    # example's PPO; the GAIL and AIRL tutorials and the quickstart run
+    # [128, 8]) and [40, 16] (the custom-env tutorial's PPO); then the
+    # HalfCheetah path's, edge shapes and a large one.
+    main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64), (128, 32), (64, 8),
+            (40, 16))
     err_path = 0.0
     for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
@@ -527,6 +565,9 @@ def check_kernels(torch, dev):
         dp_rank=dict(gae_rows[(128, 32)], shape="[128, 32] f32 x5 -> x2: one rank's columns of dp_gail's "
                                                 "[128, 64] over 2 ranks, and of a dp row of tp_gail's 4 ranks "
                                                 "(timed alone, not under the ranks)"),
+        tutorials=dict(gae_rows[(64, 8)], shape="[64, 8] f32 x5 -> x2: the RLHF and density tutorials' and "
+                                                "the RLHF example's PPO iterations"),
+        custom_env=dict(gae_rows[(40, 16)], shape="[40, 16] f32 x5 -> x2: the custom-env tutorial's PPO"),
         halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
@@ -597,6 +638,10 @@ def check_kernels(torch, dev):
     # envs: 64 scripted episodes of 200 rows, a replay ring of 512 rows, demo
     # batch 8192 (the AIRL Pendulum fields).
     host_gail = check_fused("GAIL disc step over host Pendulum", 12800, 512, 8192, airl_kinds)
+    # The GAIL and AIRL tutorials' and the quickstart's disc step: 24 scripted
+    # CartPole episodes of 200 rows, a replay ring of 8 envs x 128 steps, demo
+    # batch 256.
+    tutorial = check_fused("GAIL disc step of the tutorials", 4800, 1024, 256, gail_kinds)
     for name, kinds, n, c, b, spread in (
         ("edge-1row", (((1,), f32, 0),), 5, 5, 1, 0),
         ("edge-out-of-range", (((3,), f32, 0),), 12, 9, 40, 30),
@@ -621,6 +666,7 @@ def check_kernels(torch, dev):
     airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
     gail_cli_row = time_b2(torch, "kernels", "GAIL disc step at gail_cartpole (4 fields)", *gail_cli, 1024)
     host_row = time_b2(torch, "kernels", "GAIL disc step over host Pendulum (4 fields)", *host_gail, 8192)
+    tutorial_row = time_b2(torch, "kernels", "GAIL disc step of the tutorials (4 fields)", *tutorial, 256)
     pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
     car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
                       *car, 1024)
@@ -643,6 +689,8 @@ def check_kernels(torch, dev):
         gail_cartpole=dict(gail_cli_row, shape="demo [5000], replay [8192], B=1024, the GAIL fields"),
         gail_host_pendulum=dict(host_row, shape="demo [12800], replay [512], B=8192; obs/next_obs [., 3] f32, "
                                                 "acts [., 1] f32, dones [.] f32"),
+        tutorial_disc_step=dict(tutorial_row, shape="demo [4800], replay [1024], B=256, the GAIL fields: the GAIL "
+                                                    "and AIRL tutorials' and the quickstart's disc step"),
         pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
                                               f"[., 16, 16, 1] f32, acts [.] int32, dones [.] f32"),
         carracing_rows=dict(car_row, main_path=False,
@@ -1166,10 +1214,12 @@ def run_bc(torch, dev, env_name, phase, demo_kw, bc_kw, epochs, accumulate=None)
 
 def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=False, **venv_kw):
     """``SimpleDAggerTrainer.train`` on 16 device envs (with ``host``, 16
-    host envs of the C++ engine, made with ``venv_kw``) with the scripted
+    host envs of the C++ engine), made with ``venv_kw``, with the scripted
     expert, then ``save_trainer``, ``reconstruct_trainer`` and one more
     round of the rebuilt trainer."""
     import tempfile
+
+    import numpy as np
 
     from imitation_tpu_torch.algorithms import dagger
     from imitation_tpu_torch.algorithms.bc import BC
@@ -1181,15 +1231,16 @@ def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=Fals
     if host:
         venv = CppVectorEnv(env_name, num_envs=16, seed=0, device=dev, **venv_kw)
     else:
-        venv = make_vec_env(env_name, num_envs=16, device=dev)
+        venv = make_vec_env(env_name, num_envs=16, device=dev, **venv_kw)
     eval_venv = make_vec_env(env_name, num_envs=64, device=dev)
     space = venv.observation_space, venv.action_space
     expert = experts.expert_for(env_name)
 
     def check_demos(trainer):
         for t in trainer._all_demos:
-            want, _ = expert(torch.as_tensor(t.obs[:-1], device=dev))
-            if not torch.equal(torch.as_tensor(t.acts, device=dev), want):
+            # Copies: the loaded demos are read-only views of their Arrow file.
+            want, _ = expert(torch.as_tensor(np.array(t.obs[:-1]), device=dev))
+            if not torch.equal(torch.as_tensor(np.array(t.acts), device=dev), want):
                 raise AssertionError(f"{phase}: a saved demo's actions are not the expert's")
 
     def drive(trainer, total, what):
@@ -1348,14 +1399,14 @@ def finite_metrics(torch, phase, metrics, keys):
     return host
 
 
-def run_sac(torch, dev, num_envs=16, masked_rounds=10, rounds=3):
+def run_sac(torch, dev, num_envs=16, masked_rounds=5, rounds=3):
     """``SAC.learn`` on device Pendulum-v1 at the expert-training settings
     (benchmarking/train_experts.py:200-212, the PEBBLE generator of
     benchmarking/run_rlhf.py:69): 16 envs, train_freq 16, 256 gradient steps
     of batch 256 a round, (256, 256) actor and critics, lr 3e-4;
-    ``learning_starts`` cut from 10,000 to 2,560, so ``masked_rounds``
-    rounds store 2,560 rows with masked updates before ``rounds`` rounds
-    learn (3,328 rows in all). The learning rounds run with the CUDA sync debug mode on and
+    ``learning_starts`` cut from 10,000 to 1,280, so ``masked_rounds``
+    rounds store 1,280 rows with masked updates before ``rounds`` rounds
+    learn (2,048 rows in all). The learning rounds run with the CUDA sync debug mode on and
     must make no host read (nothing is logged)."""
     from imitation_tpu_torch.envs import make_vec_env
     from imitation_tpu_torch.rl.sac import SAC, SACConfig
@@ -2099,11 +2150,11 @@ def kde_cpu_check(torch, phase, demos, venv, cfg):
             raise AssertionError(f"{phase}: the card's KDE reward disagrees with the CPU's ({kind})")
 
 
-def run_density(torch, dev, num_envs=16, timesteps=8_192):
+def run_density(torch, dev, num_envs=16, timesteps=4_096):
     """benchmarking/run_small_algos.py:79-105 at its widths: 16 envs, the
     scripted expert's episodes (``min_episodes=20``), STATE_ACTION_DENSITY,
     bandwidth 0.5, standardised, stationary; PPO n_steps 64, 8 minibatches x
-    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 8,192 timesteps."""
+    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 4,096 timesteps."""
     import numpy as np
 
     from imitation_tpu_torch.algorithms import density
@@ -2335,7 +2386,7 @@ def pixel_ensemble_check(torch, phase, loop):
 
 
 def run_rlhf_pixel(torch, dev):
-    """The ported tutorial's loop (``build``) at half its ``__main__``
+    """The ported tutorial's loop (``build``) at an eighth of its ``__main__``
     timesteps, through ``run_rlhf``: CartPole's reward is 1 a step, so every fragment
     of 20 steps returns 20 and the synthetic preferences are coin flips; the
     reward's fit is printed, not asserted (no refit). Then the CNN
@@ -2347,9 +2398,9 @@ def run_rlhf_pixel(torch, dev):
     phase = "rlhf_pixel_cartpole"
     loop = tutorial.build(dev, make_logger())
     launches, per_iter = run_rlhf(
-        torch, phase, loop, 15_000, 300, ("15,000 timesteps instead of the tutorial's __main__ 30,000 "
-                                          "(90 PPO iterations instead of 177), to keep the script within "
-                                          "its time with the CLI phases; its 300 comparisons kept",),
+        torch, phase, loop, 4_000, 300, ("4,000 timesteps instead of the tutorial's __main__ 30,000 "
+                                         "(about 24 PPO iterations instead of 177), to keep the script within "
+                                         "its time with the CLI and example phases; its 300 comparisons kept",),
         true_reward=lambda obs, acts: np.ones(acts.shape, np.float32), refit=False)
     pixel_ensemble_check(torch, phase, loop)
     return launches, per_iter
@@ -2624,18 +2675,18 @@ def run_files(run_dir):
     return sorted(os.path.relpath(os.path.join(r, f), run_dir) for r, _, fs in os.walk(run_dir) for f in fs)
 
 
-def cli_run(torch, phase, script, argv, root):
+def cli_run(torch, phase, script, argv, root, formats="['csv','json']"):
     """One in-process ``ex.run_cli`` of the port's ``script`` on the default
-    device (CUDA: no ``device`` key given), logging to csv and json files
-    under a fresh ``log_root`` in ``root``; asserts ``run.json`` COMPLETED.
-    Returns (result, run directory)."""
+    device (CUDA: no ``device`` key given), logging to ``formats`` (csv and
+    json files by default) under a fresh ``log_root`` in ``root``; asserts
+    ``run.json`` COMPLETED. Returns (result, run directory)."""
     import importlib
 
     ex = importlib.import_module(f"imitation_tpu_torch.scripts.{script}").ex
     log_root = tempfile.mkdtemp(prefix=f"{phase}_", dir=root)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = ex.run_cli(argv + ["log_format_strs=['csv','json']", f"log_root={log_root}"])
+    result = ex.run_cli(argv + [f"log_format_strs={formats}", f"log_root={log_root}"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     (env_dir,) = os.listdir(log_root)
@@ -2786,8 +2837,15 @@ def run_cli_imitation_cartpole(torch, dev, root):
                "sqil.total_timesteps 5,000 instead of 50,000")
     zero_counts()
     returns = {}
-    result, bc_dir = cli_run(torch, phase, "train_imitation", ["bc", "with", "bc_cartpole", "bc.n_epochs=2"], root)
+    result, bc_dir = cli_run(torch, phase, "train_imitation", ["bc", "with", "bc_cartpole", "bc.n_epochs=2"], root,
+                             formats="['csv','json','tensorboard']")
     returns["bc"] = result["imit_stats"]
+    (events,) = [f for f in os.listdir(bc_dir) if f.startswith("events.out.tfevents.")]
+    records = checked_tfrecords(os.path.join(bc_dir, events))
+    if b"brain.Event:2" not in records[0] or not any(b"imit_stats/monitor_return_mean" in r for r in records):
+        raise AssertionError(f"{phase}: the events file lacks its version record or the evaluation's scalars")
+    log(phase, f"bc's {events}: {len(records)} records, every length and data CRC-32C checked (bitwise), "
+               f"the first brain.Event:2")
     result, _ = cli_run(torch, phase, "train_imitation",
                         ["dagger", "with", "dagger_cartpole", "dagger.total_timesteps=2000"], root)
     returns["dagger"] = result["imit_stats"]
@@ -2938,6 +2996,224 @@ def run_cli_main(torch, root):
                f"_build/ unchanged ({', '.join(sorted(before))}); files {', '.join(run_files(run_dir))}")
 
 
+# -- the examples, the interactive policy and the writers ------------------------
+
+# Each ported example's main at tests/test_examples.py's budgets (the quickstart
+# and the RLHF example take none): (phase, module under
+# imitation_tpu_torch.examples, keyword arguments, a line it prints).
+EXAMPLES = (
+    ("ex_t01_bc", "tutorials.t01_train_bc", {}, "return after BC"),
+    ("ex_t02_dagger", "tutorials.t02_train_dagger", {"total_timesteps": 1000}, "DAgger return"),
+    ("ex_t03_gail", "tutorials.t03_train_gail", {"total_timesteps": 4096}, "GAIL return"),
+    ("ex_t04_airl", "tutorials.t04_train_airl", {"total_timesteps": 4096}, "AIRL return"),
+    ("ex_t05_rlhf", "tutorials.t05_preference_comparisons",
+     {"total_timesteps": 4000, "total_comparisons": 40}, "reward loss"),
+    ("ex_t05a_rlhf_cnn", "tutorials.t05a_preference_comparisons_cnn",
+     {"total_timesteps": 2000, "total_comparisons": 30}, "CNN reward loss"),
+    ("ex_t06_mce", "tutorials.t06_train_mce", {}, "occupancy gap"),
+    ("ex_t07_density", "tutorials.t07_train_density", {"rl_timesteps": 1024}, "true-env return"),
+    ("ex_t08_sqil", "tutorials.t08_train_sqil", {"total_timesteps": 1000}, "SQIL return"),
+    ("ex_t08a_sqil_sac", "tutorials.t08a_train_sqil_sac", {"total_timesteps": 500}, "SQIL-SAC return"),
+    ("ex_t09_baselines", "tutorials.t09_compare_baselines", {"n_seeds": 2, "n_epochs": 1}, "P(BC > random)"),
+    ("ex_t10_custom_env", "tutorials.t10_train_custom_env", {"ppo_iters": 5}, "BC return"),
+    ("ex_quickstart", "quickstart", {}, "AIRL return"),
+    ("ex_rlhf_example", "rlhf_preference_comparisons", {}, "final reward loss"),
+)
+
+
+def run_example(torch, dev, phase, module, kwargs, expect):
+    """``main(device=dev, **kwargs)`` of an example, its printed lines kept
+    apart (the loggers' tables included) and its last lines printed, with
+    the kernels' launch counts set to 0 just before and read just after:
+    B1 once per PPO iteration (``PPO.process_chunk`` calls, counted here)
+    and B2 once per disc step (``_disc_step`` calls). Returns (launches,
+    seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    from imitation_tpu_torch.algorithms.adversarial.common import AdversarialTrainer
+    from imitation_tpu_torch.rl.ppo import PPO
+
+    calls = {"ppo_iterations": 0, "disc_steps": 0}
+    originals = {(PPO, "process_chunk"): "ppo_iterations", (AdversarialTrainer, "_disc_step"): "disc_steps"}
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    saved = {(cls, name): getattr(cls, name) for cls, name in originals}
+    for (cls, name), key in originals.items():
+        setattr(cls, name, counted(saved[(cls, name)], key))
+    out = io.StringIO()
+    try:
+        main = importlib.import_module(f"imitation_tpu_torch.examples.{module}").main
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main(device=dev, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+    lines = [line.strip() for line in out.getvalue().splitlines()
+             if line.strip() and not line.startswith(("|", "---"))]
+    if not any(expect in line for line in lines):
+        raise AssertionError(f"{phase}: {module}.main printed no {expect!r} line: {lines[-5:]}")
+    want = {"gae": calls["ppo_iterations"], "assemble_rows": calls["disc_steps"]}
+    log(phase, f"{module}.main({', '.join(f'{k}={v}' for k, v in kwargs.items())}) on {dev}: {seconds:.2f} s; "
+               f"{calls['ppo_iterations']} PPO iterations, {calls['disc_steps']} disc steps, launches {launches}; "
+               f"printed: " + " / ".join(lines[-3:]))
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected one B1 per PPO iteration and one B2 "
+                             f"per disc step: {want}")
+    return launches, seconds
+
+
+def run_examples(torch, dev):
+    """Every example of ``EXAMPLES``; returns the launches of each path that
+    launches a kernel."""
+    paths, total = {}, 0.0
+    for phase, module, kwargs, expect in EXAMPLES:
+        launches, seconds = run_example(torch, dev, phase, module, kwargs, expect)
+        total += seconds
+        if any(launches.values()):
+            paths[phase] = launches
+    log("examples", f"{len(EXAMPLES)} mains in {total:.2f} s; kernel paths {sorted(paths)}")
+    for phase in ("ex_t03_gail", "ex_t04_airl", "ex_quickstart"):
+        if not (paths[phase]["gae"] and paths[phase]["assemble_rows"]):
+            raise AssertionError(f"{phase}: both kernels should launch: {paths[phase]}")
+    for phase in ("ex_t05_rlhf", "ex_t07_density", "ex_t10_custom_env", "ex_rlhf_example"):
+        if not paths[phase]["gae"] or paths[phase]["assemble_rows"]:
+            raise AssertionError(f"{phase}: B1 and no B2 should launch: {paths[phase]}")
+    return paths
+
+
+def run_interactive(torch, dev, num_envs=4, steps=16):
+    """``cartpole_interactive_policy`` on device CartPole through its
+    ``as_rollout_fn`` for ``steps`` steps, fed scripted keys (an invalid key
+    before every third answer): the actions come back int32 on the card and
+    equal the keys' actions; one prompt per query and per invalid key."""
+    import builtins
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from imitation_tpu_torch.data import rollout
+    from imitation_tpu_torch.envs import make_vec_env
+    from imitation_tpu_torch.policies.interactive import cartpole_interactive_policy
+
+    phase = "interactive"
+    venv = make_vec_env("CartPole-v1", num_envs=num_envs, max_episode_steps=steps, device=dev)
+    policy = cartpole_interactive_policy(venv.observation_space, venv.action_space)
+    want = np.random.default_rng(0).integers(0, 2, (steps, num_envs))
+    keys = []
+    for i, a in enumerate(want.reshape(-1)):
+        keys += (["x"] if i % 3 == 0 else []) + ["ad"[a]]
+    it = iter(keys)
+    prompts = []
+    original = builtins.input
+    builtins.input = lambda prompt="": (prompts.append(prompt), next(it))[1]
+    out = io.StringIO()
+    generator = torch.Generator(device=dev).manual_seed(0)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, chunk = rollout.collect(venv, policy.as_rollout_fn(), venv.reset(generator), steps, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        builtins.input = original
+    invalid = out.getvalue().count("Invalid key")
+    log(phase, f"{steps} steps x {num_envs} device CartPole envs through as_rollout_fn, {len(keys)} scripted "
+               f"keys ({invalid} invalid, re-prompted): {seconds:.3f} s ({1e3 * seconds / steps:.2f} ms a step: "
+               f"one host read of the observations and one copy of the actions back); actions "
+               f"{chunk.acts.dtype} on {chunk.acts.device}")
+    if chunk.acts.device != venv.device or chunk.acts.dtype != torch.int32:
+        raise AssertionError(f"{phase}: actions {chunk.acts.dtype} on {chunk.acts.device}, not int32 on the card")
+    if not np.array_equal(chunk.acts.cpu().numpy(), want) or len(prompts) != len(keys) or \
+            invalid != len(keys) - want.size:
+        raise AssertionError(f"{phase}: the actions or prompts differ from the scripted keys")
+
+
+def run_hf_roundtrip(torch, dev):
+    """Card rollouts (the scripted experts on CartPole and Pendulum) through
+    ``data.serialize.save`` (the port's HuggingFace writer) and ``load``:
+    the directory's files and features, every episode's arrays exactly,
+    with their dtypes (rewards float64), sizes and seconds."""
+    import numpy as np
+
+    from imitation_tpu_torch.data import serialize
+
+    phase = "hf_roundtrip"
+    for env_name, num_envs, episodes in (("CartPole-v1", 16, 32), ("Pendulum-v1", 16, 64)):
+        demos, _ = expert_demos(torch, phase, env_name, num_envs, episodes, dev)
+        with tempfile.TemporaryDirectory(prefix="itt_hf_") as d:
+            t0 = time.perf_counter()
+            serialize.save(d, demos)
+            t_save = time.perf_counter() - t0
+            files = sorted(os.listdir(d))
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+            t0 = time.perf_counter()
+            loaded = serialize.load(d)
+            loaded = [loaded[i] for i in range(len(loaded))]
+            t_load = time.perf_counter() - t0
+            with open(os.path.join(d, "dataset_info.json")) as f:
+                features = json.load(f)["features"]
+        if files != ["data-00000-of-00001.arrow", "dataset_info.json", "state.json"]:
+            raise AssertionError(f"{phase}: files {files}")
+        for got, want in zip(loaded, demos):
+            for field in ("obs", "acts", "rews"):
+                a, b = getattr(got, field), getattr(want, field)
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"{phase}: {env_name} {field} {a.dtype} differs from {b.dtype}")
+            if bool(got.terminal) != bool(want.terminal) or len(got.infos) != len(want):
+                raise AssertionError(f"{phase}: {env_name} terminal or infos differ")
+        if len(loaded) != len(demos) or features["rews"]["feature"]["dtype"] != "float64":
+            raise AssertionError(f"{phase}: {len(loaded)} of {len(demos)} episodes, features {features}")
+        log(phase, f"{env_name}: {len(demos)} episodes, {sum(len(t) for t in demos)} steps from the card: save "
+                   f"{t_save:.3f} s, load {t_load:.3f} s, {size} bytes ({', '.join(files)}); obs "
+                   f"{features['obs']['feature']['feature']['dtype']}, acts {demos[0].acts.dtype}, rews float64; "
+                   f"every array equal")
+
+
+def crc32c_bitwise(data: bytes) -> int:
+    """CRC-32C bit by bit, independent of the port's table-driven one."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 & -(crc & 1))
+    return crc ^ 0xFFFFFFFF
+
+
+def checked_tfrecords(path):
+    """The records of a TFRecord file, each of its two masked CRCs checked."""
+    def masked(data):
+        crc = crc32c_bitwise(data)
+        return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    with open(path, "rb") as f:
+        data = f.read()
+    records, pos = [], 0
+    while pos < len(data):
+        head = data[pos:pos + 8]
+        (length,), (head_crc,) = struct.unpack("<Q", head), struct.unpack("<I", data[pos + 8:pos + 12])
+        body = data[pos + 12:pos + 12 + length]
+        (body_crc,) = struct.unpack("<I", data[pos + 12 + length:pos + 16 + length])
+        if masked(head) != head_crc or masked(body) != body_crc or len(body) != length:
+            raise AssertionError(f"{path}: record at byte {pos} fails its CRC")
+        records.append(body)
+        pos += 16 + length
+    return records
+
+
 # -- the host-env path ---------------------------------------------------------
 
 # bench.py:106-180's main-path GAIL learner at benchmarking/run_parity.py:57's
@@ -3062,7 +3338,7 @@ def close_host_trainer(trainer) -> None:
     trainer.venv.close()
 
 
-def run_gail_host_pendulum(torch, dev, reps=2, rounds=2):
+def run_gail_host_pendulum(torch, dev, reps=1, rounds=2):
     """GAIL at bench.py's main-path learner configuration over 64 host
     Pendulum-v1 envs, serialized and overlapped, each on ``reps`` fresh
     trainers alternately (bench.py:187-196): a warm-up round, ``rounds``
@@ -3810,7 +4086,8 @@ def main() -> int:
             torch, dev, "Pendulum-v1", "bc_pendulum", {},
             dict(batch_size=64, l2_weight=1e-4, optimizer_kwargs=dict(learning_rate=1e-3)), epochs=2)),
         ("dagger_cartpole", lambda: run_dagger(
-            torch, dev, "CartPole-v1", "dagger_cartpole", dagger.LinearBetaSchedule(15), 4000)),
+            torch, dev, "CartPole-v1", "dagger_cartpole", dagger.LinearBetaSchedule(15), 2000,
+            max_episode_steps=200)),
         ("dagger_pendulum", lambda: run_dagger(
             torch, dev, "Pendulum-v1", "dagger_pendulum", dagger.ExponentialBetaSchedule(0.7), 2000)),
     ):
@@ -3918,6 +4195,22 @@ def main() -> int:
             paths.update(fn() or {})
             log(phase, f"done in {time.perf_counter() - t0:.2f} s")
     log("cli", f"the CLI phases took {time.perf_counter() - t_cli:.2f} s")
+
+    # The examples and tutorials, each main on the card at tests/test_examples.py's
+    # budgets (B1 once per PPO iteration at [128, 8], [64, 8] and [40, 16]; B2
+    # once per disc step at demo batch 256), the interactive policy over a
+    # device env, and a card rollout through the HuggingFace writer and back.
+    t_ex = time.perf_counter()
+    paths.update(run_examples(torch, dev))
+    for phase, fn in (("interactive", lambda: run_interactive(torch, dev)),
+                      ("hf_roundtrip", lambda: run_hf_roundtrip(torch, dev))):
+        t0 = time.perf_counter()
+        zero_counts()
+        fn()
+        if any(counts().values()):
+            raise AssertionError(f"{phase}: kernel launches {counts()} on a path without either kernel")
+        log(phase, f"done in {time.perf_counter() - t0:.2f} s")
+    log("examples", f"the examples, interactive and writer phases took {time.perf_counter() - t_ex:.2f} s")
 
     # The host-env path: the C++ engine on the card's host, GAIL at bench.py's
     # main-path learner configuration over 64 host Pendulum-v1 envs (B1 at

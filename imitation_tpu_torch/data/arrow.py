@@ -20,12 +20,22 @@ Validity bitmaps are honoured (a zero-length bitmap when ``null_count`` is
 It refuses, with the reason: body compression (LZ4 or ZSTD), dictionary
 batches and dictionary-encoded fields, big-endian data, the pre-0.15 format
 without the continuation word, other types, and truncated streams.
+
+``write_stream(fields, columns, metadata)`` writes the same subset: a
+``Schema`` message with the custom metadata, one ``RecordBatch`` and the end
+of the stream, little-endian and uncompressed, each buffer padded to 8
+bytes, a validity bitmap only where a column has nulls. ``numbers``,
+``strings``, ``lists`` and ``nested_lists`` build the columns from numpy.
+The flatbuffers are laid out front to back (a table's vtable just before
+it, its children after it, every scalar at its own alignment), which is
+what the reader above and pyarrow's verifier accept.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import math
 import struct
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -406,3 +416,234 @@ def concat_tables(tables: Sequence[Table]) -> Table:
                for f in first.fields}
     return Table(list(first.fields), dict(first.metadata), columns,
                  sum(t.num_rows for t in tables), sum(t.num_batches for t in tables))
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+METADATA_V5 = 4
+INT32_MAX = 2**31 - 1
+
+
+class _Structs:
+    """A flatbuffer vector of structs of format ``fmt`` (8-byte aligned)."""
+
+    def __init__(self, fmt: str, items: Sequence[tuple]):
+        self.fmt, self.items = fmt, list(items)
+
+
+class _FlatTable:
+    """A flatbuffer table to write: field index -> ``(fmt, value)`` for a
+    scalar (a ``struct`` format), or the child (``_FlatTable``, ``str``, a
+    list of tables or ``_Structs``) an offset points to."""
+
+    def __init__(self, fields: Dict[int, Any]):
+        self.fields = fields
+
+
+class _FlatWriter:
+    """Lays out a flatbuffer front to back: the root offset, then each
+    object before the objects it points to, so every uoffset is positive."""
+
+    def __init__(self):
+        self.buf = bytearray(4)
+
+    def _pad(self, align: int, extra: int = 0) -> None:
+        """Pads so that what is written ``extra`` bytes on is aligned."""
+        self.buf.extend(b"\0" * (-(len(self.buf) + extra) % align))
+
+    def _point(self, at: int, child: Any) -> None:
+        pos = self._write(child)
+        struct.pack_into("<I", self.buf, at, pos - at)
+
+    def _write(self, obj: Any) -> int:
+        buf = self.buf
+        if isinstance(obj, str):
+            data = obj.encode("utf-8")
+            self._pad(4)
+            pos = len(buf)
+            buf.extend(struct.pack("<I", len(data)) + data + b"\0")
+            return pos
+        if isinstance(obj, _Structs):
+            self._pad(8, extra=4)  # the items 8-aligned after the length
+            pos = len(buf)
+            buf.extend(struct.pack("<I", len(obj.items)))
+            for item in obj.items:
+                buf.extend(struct.pack("<" + obj.fmt, *item))
+            return pos
+        if isinstance(obj, list):  # a vector of tables
+            self._pad(4)
+            pos = len(buf)
+            buf.extend(struct.pack("<I", len(obj)) + b"\0" * (4 * len(obj)))
+            for i, child in enumerate(obj):
+                self._point(pos + 4 + 4 * i, child)
+            return pos
+        # A table: its soffset, then its fields at their own alignment,
+        # largest first, after an 8-aligned start.
+        sizes = {i: struct.calcsize("<" + v[0]) if isinstance(v, tuple) else 4 for i, v in obj.fields.items()}
+        offsets, end = {}, 4
+        for i in sorted(sizes, key=lambda i: (-sizes[i], i)):
+            end += -end % sizes[i]
+            offsets[i] = end
+            end += sizes[i]
+        end += -end % 4
+        n_slots = max(obj.fields, default=-1) + 1
+        self._pad(2)
+        vtable = len(buf)
+        buf.extend(struct.pack(f"<{2 + n_slots}H", 4 + 2 * n_slots, end,
+                               *(offsets.get(i, 0) for i in range(n_slots))))
+        self._pad(8)
+        pos = len(buf)
+        buf.extend(b"\0" * end)
+        struct.pack_into("<i", buf, pos, pos - vtable)
+        for i, v in obj.fields.items():
+            if isinstance(v, tuple):
+                struct.pack_into("<" + v[0], buf, pos + offsets[i], v[1])
+        for i, v in obj.fields.items():
+            if not isinstance(v, tuple):
+                self._point(pos + offsets[i], v)
+        return pos
+
+    def finish(self, root: _FlatTable) -> bytes:
+        struct.pack_into("<I", self.buf, 0, self._write(root))
+        self._pad(8)
+        return bytes(self.buf)
+
+
+def _type_table(dtype: DataType) -> Tuple[int, _FlatTable]:
+    """The ``Type`` union's code and table of ``dtype``."""
+    if dtype.kind == "int":
+        return TYPE_INT, _FlatTable({0: ("i", dtype.dtype.itemsize * 8), 1: ("?", dtype.dtype.kind == "i")})
+    if dtype.kind == "float":
+        precision = {np.dtype(v).itemsize: k for k, v in FLOAT_DTYPES.items()}[dtype.dtype.itemsize]
+        return TYPE_FLOAT, _FlatTable({0: ("h", precision)})
+    code = {"bool": TYPE_BOOL, "utf8": TYPE_UTF8, "large_utf8": TYPE_LARGE_UTF8, "list": TYPE_LIST,
+            "large_list": TYPE_LARGE_LIST}.get(dtype.kind)
+    if code is None:
+        raise ValueError(f"Arrow type {dtype} is not written")
+    return code, _FlatTable({})
+
+
+def _field_table(field: Field) -> _FlatTable:
+    code, spec = _type_table(field.type)
+    children = [] if field.type.child is None else [_field_table(Field("item", field.type.child, True))]
+    return _FlatTable({0: field.name, 1: ("?", field.nullable), 2: ("B", code), 3: spec, 5: children})
+
+
+def _message(header_type: int, header: _FlatTable, body_length: int) -> bytes:
+    """A framed message: the continuation word, the metadata's length and
+    the metadata, padded so that the body that follows starts 8-aligned."""
+    meta = _FlatWriter().finish(_FlatTable({0: ("h", METADATA_V5), 1: ("B", header_type), 2: header,
+                                         3: ("q", body_length)}))
+    meta += b"\0" * (-len(meta) % 8)
+    return struct.pack("<Ii", CONTINUATION, len(meta)) + meta
+
+
+def _le(values: np.ndarray) -> bytes:
+    return np.ascontiguousarray(values, values.dtype.newbyteorder("<")).tobytes()
+
+
+def _packed(bits: np.ndarray) -> bytes:
+    return np.packbits(np.asarray(bits, bool), bitorder="little").tobytes()
+
+
+def _flatten(arr: Array, nodes: List[tuple], buffers: List[bytes]) -> None:
+    """``arr``'s node and buffers in pre-order, as ``_read_array`` reads them."""
+    nulls = 0 if arr.validity is None else int((~np.asarray(arr.validity, bool)).sum())
+    nodes.append((arr.length, nulls))
+    buffers.append(_packed(arr.validity) if nulls else b"")
+    kind = arr.type.kind
+    if kind in ("int", "float"):
+        buffers.append(_le(np.asarray(arr.values, arr.type.dtype)))
+    elif kind == "bool":
+        buffers.append(_packed(arr.values))
+    else:
+        large = kind in ("large_utf8", "large_list")
+        offsets = np.asarray(arr.offsets, np.int64)
+        if not large and offsets[-1] > INT32_MAX:
+            raise ValueError(f"{offsets[-1]} items overflow a {kind}'s int32 offsets; use its large form")
+        buffers.append(_le(offsets.astype("<i8" if large else "<i4")))
+        if kind in ("utf8", "large_utf8"):
+            buffers.append(bytes(arr.data))
+        else:
+            _flatten(arr.child, nodes, buffers)
+
+
+def write_stream(fields: Sequence[Field], columns: Sequence[Array],
+                 metadata: Optional[Dict[str, str]] = None) -> bytes:
+    """An Arrow IPC stream of one record batch: ``columns[i]`` is the column
+    of ``fields[i]`` (all of one length); ``metadata`` the schema's custom
+    key-value strings."""
+    if len(fields) != len(columns):
+        raise ValueError(f"{len(fields)} fields for {len(columns)} columns")
+    lengths = {len(c) for c in columns}
+    if len(lengths) > 1:
+        raise ValueError(f"columns of different lengths {sorted(lengths)}")
+    for f, c in zip(fields, columns):
+        if f.type != c.type:
+            raise ValueError(f"field {f.name!r} is {f.type}, its column {c.type}")
+    schema = _FlatTable({0: ("h", 0), 1: [_field_table(f) for f in fields],
+                         2: [_FlatTable({0: k, 1: v}) for k, v in (metadata or {}).items()]})
+    nodes: List[tuple] = []
+    buffers: List[bytes] = []
+    for c in columns:
+        _flatten(c, nodes, buffers)
+    spans, body = [], bytearray()
+    for b in buffers:
+        spans.append((len(body), len(b)))
+        body.extend(b + b"\0" * (-len(b) % 8))
+    batch = _FlatTable({0: ("q", lengths.pop() if lengths else 0), 1: _Structs("qq", nodes),
+                        2: _Structs("qq", spans)})
+    return b"".join([_message(HEADER_SCHEMA, schema, 0), _message(HEADER_RECORD_BATCH, batch, len(body)),
+                     bytes(body), struct.pack("<Ii", CONTINUATION, 0)])
+
+
+def numbers(values: np.ndarray) -> Array:
+    """A column of the 1-D numeric or bool array ``values``."""
+    values = np.asarray(values)
+    if values.ndim != 1:
+        raise ValueError(f"numbers takes a 1-D array, not {values.shape}")
+    if values.dtype == np.bool_:
+        return Array(DataType("bool"), len(values), values=values)
+    if values.dtype.kind in "iu":
+        return Array(DataType("int", values.dtype.newbyteorder("<")), len(values), values=values)
+    if values.dtype.kind == "f":
+        return Array(DataType("float", values.dtype.newbyteorder("<")), len(values), values=values)
+    raise TypeError(f"no Arrow number type for numpy {values.dtype}")
+
+
+def strings(items: Sequence[str]) -> Array:
+    """A ``utf8`` column of ``items``."""
+    data = [s.encode("utf-8") for s in items]
+    offsets = np.concatenate([[0], np.cumsum([len(d) for d in data], dtype=np.int64)])
+    return Array(DataType("utf8"), len(data), offsets=offsets, data=memoryview(b"".join(data)))
+
+
+def lists(child: Array, lengths: Sequence[int], large: bool = False) -> Array:
+    """A column whose row ``i`` holds the next ``lengths[i]`` items of ``child``."""
+    offsets = np.concatenate([[0], np.cumsum(np.asarray(lengths, np.int64))]).astype(np.int64)
+    if offsets[-1] != len(child):
+        raise ValueError(f"lengths sum to {offsets[-1]}, the child has {len(child)} items")
+    return Array(DataType("large_list" if large else "list", child=child.type), len(lengths),
+                 offsets=offsets, child=child)
+
+
+def nested_lists(arrays: Sequence[np.ndarray]) -> Array:
+    """A column whose row ``i`` is the array ``arrays[i]`` (``[n_i, *shape]``,
+    one ``shape`` and dtype for all) as lists nested one level per axis, as
+    ``datasets`` stores a list of numpy arrays."""
+    if not arrays:
+        raise ValueError("nested_lists needs at least one array")
+    first = np.asarray(arrays[0])
+    if first.ndim == 0:
+        raise ValueError("nested_lists takes arrays of at least one axis")
+    shape = first.shape[1:]
+    for a in arrays:
+        if np.asarray(a).shape[1:] != shape:
+            raise ValueError(f"arrays of trailing shapes {shape} and {np.asarray(a).shape[1:]}")
+    flat = np.concatenate([np.asarray(a, first.dtype).reshape(-1, *shape) for a in arrays])
+    column = numbers(flat.reshape(-1))
+    for k in reversed(range(len(shape))):  # innermost axis first: n * prod(shape[:k]) lists of shape[k]
+        column = lists(column, np.full(len(flat) * math.prod(shape[:k]), shape[k], np.int64))
+    return lists(column, [np.asarray(a).shape[0] for a in arrays])

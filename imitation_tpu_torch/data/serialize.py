@@ -1,16 +1,21 @@
 """Trajectory (de)serialization.
 
-Port of ``imitation_tpu/data/serialize.py``. ``save`` writes the ``.npz``
-directory format (``<path>/trajectories.npz`` with arrays ``obs_i``,
-``acts_i``, ``terminal_i`` and, when every trajectory has rewards,
-``rews_i``, plus the count ``n``), which the JAX package writes where
-``datasets`` is absent; ``infos`` are not stored. ``load`` reads, as the
-JAX package's does:
+Port of ``imitation_tpu/data/serialize.py``. ``save`` writes a HuggingFace
+``datasets`` directory, as the JAX package's ``save`` does wherever
+``datasets`` is installed, with the port's own writer
+(``huggingface_utils.write_dataset_dir``, no ``datasets`` needed): columns
+``obs``, ``acts``, ``infos`` (each step's info as JSON, ``{}`` where there
+are none or it does not serialize), ``terminal`` and, when every trajectory
+has rewards, ``rews``. ``_save_npz`` writes the ``.npz`` directory format the
+JAX package falls back to without ``datasets`` (``<path>/trajectories.npz``
+with arrays ``obs_i``, ``acts_i``, ``terminal_i`` and, when every trajectory
+has rewards, ``rews_i``, plus the count ``n``; no ``infos``). ``load``
+reads, as the JAX package's does:
 
 * that ``.npz`` directory;
 * a HuggingFace ``datasets`` directory (``dataset_info.json`` beside
-  Arrow files, as the repo's expert demos are), through the port's own
-  Arrow reader: a lazily decoded ``TrajectoryDatasetSequence``;
+  Arrow files: what ``save`` writes, and the repo's expert demos), through
+  the port's own Arrow reader: a lazily decoded ``TrajectoryDatasetSequence``;
 * the reference's legacy flat ``.npz`` (concatenated arrays split by
   ``indices``), with a ``DeprecationWarning``;
 * the reference's legacy ``.pkl`` (a pickled list of trajectories, its
@@ -22,6 +27,7 @@ Rewards load as float64.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import warnings
@@ -34,8 +40,39 @@ from imitation_tpu_torch.data import huggingface_utils, types
 NPZ_NAME = "trajectories.npz"
 
 
+def _infos_to_strs(infos, length: int):
+    if infos is None:
+        infos = [{}] * length
+    out = []
+    for info in infos:
+        try:
+            out.append(json.dumps(info, default=str))
+        except TypeError:
+            out.append("{}")
+    return out
+
+
 def save(path: str, trajectories: Sequence[types.Trajectory]) -> None:
-    """Saves ``trajectories`` to the directory ``path``."""
+    """Saves ``trajectories`` as the HuggingFace dataset directory ``path``.
+    A ``trajectories.npz`` left there by ``_save_npz`` is removed, since
+    ``load`` would read it first."""
+    has_rew = all(isinstance(t, types.TrajectoryWithRew) for t in trajectories)
+    d = {
+        "obs": [np.asarray(types.maybe_unwrap_dictobs(t.obs)) for t in trajectories],
+        "acts": [np.asarray(t.acts) for t in trajectories],
+        "infos": [_infos_to_strs(t.infos, len(t)) for t in trajectories],
+        "terminal": [bool(t.terminal) for t in trajectories],
+    }
+    if has_rew:
+        d["rews"] = [np.asarray(t.rews) for t in trajectories]
+    huggingface_utils.write_dataset_dir(path, d)
+    stale = os.path.join(path, NPZ_NAME)
+    if os.path.exists(stale):
+        os.remove(stale)
+
+
+def _save_npz(path: str, trajectories: Sequence[types.Trajectory]) -> None:
+    """Saves ``trajectories`` as the ``.npz`` directory ``path``."""
     os.makedirs(path, exist_ok=True)
     has_rew = all(isinstance(t, types.TrajectoryWithRew) for t in trajectories)
     arrays = {}

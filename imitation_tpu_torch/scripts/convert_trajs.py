@@ -3,8 +3,9 @@
 Port of ``imitation_tpu/scripts/convert_trajs.py``: loads trajectories in
 any format ``data.serialize.load`` reads (the ``.npz`` directory,
 HuggingFace directories, the legacy ``.npz`` / ``.pkl`` files) and saves
-them as an ``.npz`` directory beside the original (a legacy ``x.npz``
-becomes ``x/``; a directory is rewritten in place).
+them as a HuggingFace dataset directory (``data.serialize.save``) beside the
+original (a legacy ``x.npz`` becomes ``x/``; a directory is rewritten in
+place).
 
     python -m imitation_tpu_torch convert_trajs path1 [path2 ...]
 """

@@ -10,10 +10,12 @@ Port of ``imitation_tpu/util/logger.py``:
 * ``add_key_prefix`` / ``add_accumulate_prefix`` context managers.
 * Output formats: ``stdout`` (a table), ``log`` (the same table in
   ``log.txt``), ``csv`` (``progress.csv``, with columns added as new keys
-  appear and the header rewritten) and ``json`` (``progress.json``, one
-  object per dump). The TensorBoard and W&B writers of the JAX package are
-  not ported: they need ``tensorboardX`` and ``wandb``, which the GPU
-  machine lacks, so asking for them raises.
+  appear and the header rewritten), ``json`` (``progress.json``, one
+  object per dump) and ``tensorboard`` (``events.out.tfevents.<time>.<host>``,
+  the scalars as ``tensorboardX``'s ``add_scalar`` writes them, written with
+  the standard library: see ``TensorBoardOutputFormat``). The W&B writer is
+  not ported: it needs ``wandb``, which the GPU machine lacks, and logs to an
+  outside service, so asking for it raises.
 """
 
 from __future__ import annotations
@@ -23,10 +25,13 @@ import csv
 import datetime
 import json
 import os
+import socket
+import struct
 import sys
 import tempfile
+import time
 from collections import defaultdict
-from typing import Any, Dict, List, Optional, Sequence, TextIO
+from typing import Any, Dict, List, Optional, Sequence, TextIO, Tuple
 
 
 class KVWriter:
@@ -114,9 +119,104 @@ class JSONOutputFormat(KVWriter):
         self.file.close()
 
 
+def _crc32c_table() -> List[int]:
+    table = []
+    for i in range(256):
+        crc = i
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)  # Castagnoli, reflected
+        table.append(crc)
+    return table
+
+
+_CRC32C_TABLE = _crc32c_table()
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of ``data``, by a table of 256 entries."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = _CRC32C_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data: bytes) -> int:
+    """TFRecord's masked CRC: the CRC rotated right by 15 bits plus
+    ``0xA282EAD8``, modulo 2^32."""
+    crc = crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def tfrecord(data: bytes) -> bytes:
+    """One TFRecord: the uint64 length, its masked CRC, the data and its
+    masked CRC, little-endian."""
+    length = struct.pack("<Q", len(data))
+    return length + struct.pack("<I", masked_crc32c(length)) + data + struct.pack("<I", masked_crc32c(data))
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # a negative int64 as its two's complement
+    out = bytearray()
+    while True:
+        bits, n = n & 0x7F, n >> 7
+        if n:
+            out.append(bits | 0x80)
+        else:
+            out.append(bits)
+            return bytes(out)
+
+
+def _bytes_field(number: int, data: bytes) -> bytes:
+    return _varint(number << 3 | 2) + _varint(len(data)) + data
+
+
+def event_bytes(wall_time: float, step: int = 0, file_version: Optional[str] = None,
+                scalar: Optional[Tuple[str, float]] = None) -> bytes:
+    """A serialized ``tensorboard.Event``: ``wall_time`` (field 1, double),
+    ``step`` (2, varint), ``file_version`` (3, string) and, for a ``(tag,
+    value)`` ``scalar``, ``summary`` (5) holding one ``Summary.Value{tag (1),
+    simple_value (2, float)}``. A zero ``step`` is left out, as proto3
+    leaves out defaults; ``simple_value`` is a member of a oneof, so it is
+    written even when zero."""
+    out = struct.pack("<Bd", 1 << 3 | 1, wall_time)
+    if step:
+        out += _varint(2 << 3) + _varint(step)
+    if file_version is not None:
+        out += _bytes_field(3, file_version.encode("utf-8"))
+    if scalar is not None:
+        tag, value = scalar
+        v = _bytes_field(1, tag.encode("utf-8")) + struct.pack("<Bf", 2 << 3 | 5, value)
+        out += _bytes_field(5, _bytes_field(1, v))
+    return out
+
+
+class TensorBoardOutputFormat(KVWriter):
+    """Scalars in a TensorBoard events file ``events.out.tfevents.<time>.<host>``
+    of ``folder``: a first ``Event`` with ``file_version "brain.Event:2"``,
+    then, per ``write``, one ``Event{wall_time, step, summary}`` per int or
+    float value, as ``tensorboardX.SummaryWriter.add_scalar`` writes them,
+    each framed as a TFRecord and flushed."""
+
+    def __init__(self, folder: str):
+        self.path = os.path.join(folder, f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}")
+        self.file = open(self.path, "wb")
+        self._write_event(event_bytes(time.time(), file_version="brain.Event:2"))
+
+    def _write_event(self, data: bytes) -> None:
+        self.file.write(tfrecord(data))
+        self.file.flush()
+
+    def write(self, kvs: Dict[str, Any], step: int) -> None:
+        for k, v in kvs.items():
+            if isinstance(v, (int, float)):
+                self._write_event(event_bytes(time.time(), int(step), scalar=(k, float(v))))
+
+    def close(self) -> None:
+        self.file.close()
+
+
 _NOT_PORTED = {
-    "tensorboard": "the TensorBoard writer needs tensorboardX",
-    "wandb": "the W&B writer needs wandb",
+    "wandb": "the W&B writer needs wandb and logs to an outside service",
 }
 
 
@@ -124,7 +224,7 @@ def make_output_format(fmt: str, folder: str) -> KVWriter:
     if fmt in _NOT_PORTED:
         raise ValueError(
             f"format {fmt!r} is not ported: {_NOT_PORTED[fmt]}, which the port may not "
-            "import (the GPU machine lacks it); use stdout, log, csv or json"
+            "import (the GPU machine lacks it); use stdout, log, csv, json or tensorboard"
         )
     os.makedirs(folder, exist_ok=True)
     if fmt == "stdout":
@@ -135,6 +235,8 @@ def make_output_format(fmt: str, folder: str) -> KVWriter:
         return CSVOutputFormat(os.path.join(folder, "progress.csv"))
     if fmt == "json":
         return JSONOutputFormat(os.path.join(folder, "progress.json"))
+    if fmt == "tensorboard":
+        return TensorBoardOutputFormat(folder)
     raise ValueError(f"Unknown format: {fmt}")
 
 

@@ -258,7 +258,7 @@ def test_trajectories_to_dict_equals_jax():
 
 
 def test_npz_directory_both_ways(tmp_path):
-    serialize.save(str(tmp_path / "port"), _trajectories(jax_side=False))
+    serialize._save_npz(str(tmp_path / "port"), _trajectories(jax_side=False))
     jax_serialize._save_npz(str(tmp_path / "jax"), _trajectories(jax_side=True))
     for path in ("port", "jax"):
         got, want = serialize.load(str(tmp_path / path)), jax_serialize.load(str(tmp_path / path))

@@ -6,7 +6,7 @@ Every command runs ``with fast`` and leaves ``config.json``, ``run.json``
 the relative names the JAX package's ``fast`` run writes. Three kinds of
 file keep a format of each package's own, and are compared by role: weights
 (``variables.msgpack`` there, ``policy.pt`` / ``reward_net.pt`` here),
-trajectories (a HuggingFace directory there, ``trajectories.npz`` here) and
+trajectories (a HuggingFace directory in both since the port has its own writer) and
 DAgger's trainer checkpoint (``.pkl`` there, ``.pt`` here). AIRL's layout
 and result keys are compared with a JAX run made in this module; the other
 commands' layouts were listed from the JAX package's ``fast`` runs.

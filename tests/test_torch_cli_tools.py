@@ -22,7 +22,7 @@ from imitation_tpu.scripts import parallel as jax_parallel
 from imitation_tpu.scripts import tuning as jax_tuning
 from imitation_tpu.util import run_dirs as jax_run_dirs
 import imitation_tpu_torch.__main__ as port_main
-from imitation_tpu_torch.data import serialize, types
+from imitation_tpu_torch.data import huggingface_utils, serialize, types
 from imitation_tpu_torch.scripts import analyze, parallel, tuning
 from imitation_tpu_torch.scripts.convert_trajs import update_traj_file_in_place
 from imitation_tpu_torch.util import run_dirs
@@ -170,14 +170,17 @@ def test_convert_trajs_reads_what_the_jax_package_saved(tmp_path):
     jax_serialize.save(str(tmp_path / "hf"), [jax_types.TrajectoryWithRew(
         obs=t.obs, acts=t.acts, infos=None, terminal=t.terminal, rews=t.rews) for t in trajs])
     assert not (tmp_path / "hf" / serialize.NPZ_NAME).exists()
+    before = (tmp_path / "hf" / huggingface_utils.SHARD_NAME).read_bytes()
     update_traj_file_in_place(str(tmp_path / "hf"))
-    assert (tmp_path / "hf" / serialize.NPZ_NAME).exists()
+    # Rewritten in place by the port's own HuggingFace writer.
+    assert not (tmp_path / "hf" / serialize.NPZ_NAME).exists()
+    assert (tmp_path / "hf" / huggingface_utils.SHARD_NAME).read_bytes() != before
     assert_same(serialize.load(str(tmp_path / "hf")), trajs)
 
 
 def test_convert_trajs_main(tmp_path, monkeypatch, capsys):
     legacy = tmp_path / "legacy.npz"
-    serialize.save(str(tmp_path / "tmp"), trajectories(2))
+    serialize._save_npz(str(tmp_path / "tmp"), trajectories(2))
     os.replace(tmp_path / "tmp" / serialize.NPZ_NAME, legacy)
     monkeypatch.setattr(sys, "argv", ["python -m imitation_tpu_torch", "convert_trajs", str(legacy)])
     port_main.main()

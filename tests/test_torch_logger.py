@@ -106,8 +106,15 @@ def test_stdout_table_matches_jax():
 
 @pytest.mark.parametrize("fmt", ["tensorboard", "wandb"])
 def test_unported_formats_raise(tmp_path, fmt):
-    with pytest.raises(ValueError, match=f"{fmt}.*not ported"):
-        logger.configure(str(tmp_path), [fmt])
+    """``wandb`` is not ported and raises; ``tensorboard`` is ported (the
+    port's own events writer, ``tests/test_torch_writers.py``) and writes
+    its events file. An unknown format raises either way."""
+    if fmt == "wandb":
+        with pytest.raises(ValueError, match=f"{fmt}.*not ported"):
+            logger.configure(str(tmp_path), [fmt])
+    else:
+        logger.configure(str(tmp_path), [fmt]).close()
+        assert [f for f in os.listdir(tmp_path) if f.startswith("events.out.tfevents.")]
     with pytest.raises(ValueError, match="Unknown format"):
         logger.make_output_format("nope", str(tmp_path))
 

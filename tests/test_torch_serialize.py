@@ -3,8 +3,10 @@ JAX package.
 
 Trajectories: a directory of the ``.npz`` format written by either package
 loads in the other with equal arrays (exactly; rewards come back float64).
-The JAX package's ``save`` writes the HuggingFace format when ``datasets``
-is installed, so its ``.npz`` writer ``_save_npz`` is called directly.
+Both packages' ``save`` write the HuggingFace format (the JAX package's when
+``datasets`` is installed; ``tests/test_torch_writers.py`` holds the two
+directories against each other), so their ``.npz`` writers ``_save_npz`` are
+called directly.
 Policies: ``policy_config.json`` equals the JAX package's for the same
 policy (actor-critic or SAC actor), and the weights round-trip exactly.
 """
@@ -67,7 +69,7 @@ def _assert_equal(got, want, with_rew):
 @pytest.mark.parametrize("with_rew", [True, False])
 def test_npz_written_by_port_loads_in_jax(tmp_path, with_rew):
     trajs = _trajs(types, with_rew)
-    serialize.save(str(tmp_path / "d"), trajs)
+    serialize._save_npz(str(tmp_path / "d"), trajs)
     assert os.listdir(tmp_path / "d") == ["trajectories.npz"]
     _assert_equal(jax_serialize.load(str(tmp_path / "d")), trajs, with_rew)
     _assert_equal(serialize.load(str(tmp_path / "d")), trajs, with_rew)
@@ -81,7 +83,7 @@ def test_npz_written_by_jax_loads_in_port(tmp_path, with_rew):
 
 
 def test_npz_same_keys_as_jax(tmp_path):
-    serialize.save(str(tmp_path / "t"), _trajs(types, True))
+    serialize._save_npz(str(tmp_path / "t"), _trajs(types, True))
     jax_serialize._save_npz(str(tmp_path / "j"), _trajs(jax_types, True))
     with np.load(tmp_path / "t" / "trajectories.npz") as t, np.load(tmp_path / "j" / "trajectories.npz") as j:
         assert sorted(t.files) == sorted(j.files)
