@@ -19,8 +19,10 @@ Phases, each timed and printed on its own line:
    CartPole and an AIRL Pendulum disc step (12-byte rows: the word path),
    the latter also at the CLI defaults' sizes, and GAIL at gail_cartpole's
    (demo 5,000 rows, replay 8,192, B = 1024) and over host Pendulum (demo
-   12,800 rows, replay 512, B = 8192: the host GAIL phase's), each four fields in one
-   launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
+   12,800 rows, replay 512, B = 8192: the host GAIL phase's) and over
+   seals/HalfCheetah (demo 48,000 rows, replay 512, B = 8192, obs/next_obs
+   [., 18] f32, acts [., 6] f32: gail_seals_half_cheetah's), each four
+   fields in one launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
    1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
    bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
    [., 2, 2]), alone and mixed with word fields and offset bases; the
@@ -32,7 +34,7 @@ Phases, each timed and printed on its own line:
    [128, 8], density's [64, 16], the pixel tutorial's [32, 8] and
    gail_cartpole's [128, 64], the tutorials' [64, 8] and [40, 16], B2 per
    disc step (the CLI defaults', the tutorials',
-   gail_cartpole's, the host GAIL's and both image-row shapes included). ``device_ms`` is the kernel's own device
+   gail_cartpole's, both host GAIL ones and both image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -191,8 +193,8 @@ Phases, each timed and printed on its own line:
    (48,000 transitions) at benchmarking/run_parity.py's settings
    (FeedForward32 with normalize_features, batch 64, l2 5.73e-3, lr
    8.06e-3), 2 epochs instead of 20: one host read per epoch, loss falling,
-   steps/s, 50 profiled steps, a save/load round trip. Evaluation needs
-   MuJoCo and is left out.
+   steps/s, 50 profiled steps, a save/load round trip, and the BC policy's
+   return on the port's HalfCheetah env (phase 49's protocol; printed).
 30. bc_dict_obs: BC on 65,536 dict observations ``{"pos": 3, "vel": 2}``
    made on the card, as tests/algorithms/test_bc_dictobs.py (batch 256
    instead of 16), 2 epochs: accuracy above 0.9, the policy on the card
@@ -239,14 +241,13 @@ Phases, each timed and printed on its own line:
    64, 64 minibatches x 5 epochs, lr 2.63e-4, clip 0.1, ent 3.99e-6,
    lambda 0.95, gamma 0.95, max_grad_norm 0.8, vf 0.115; demo batch 8192,
    replay 512 rows, 8 disc updates; 64 scripted episodes (12,800 rows)
-   made through ``generate_trajectories_host``. As bench.py:187-196,
-   serialized and overlapped (``overlap_collection``) on a fresh trainer
-   each (cut from two each to make room for the examples): a warm-up round, 2 timed rounds (B1 once at [64, 64] and B2
+   made through ``generate_trajectories_host``. Serialized only (its
+   overlapped trainer cut to make room: phase 50 runs both modes on the
+   real env): a warm-up round, 2 timed rounds (B1 once at [64, 64] and B2
    8 times a round, asserted), then 2 rounds under the generator's
-   ``PhaseTimer`` (host_collect and
-   device_update serialized, collect_join overlapped, disc_update both); s/round, the overlap
-   speedup, the thread counts; parameters, buffers and every chunk field
-   on cuda (asserted).
+   ``PhaseTimer`` (host_collect, device_update, disc_update); s/round, the
+   thread counts; parameters, buffers and every chunk field on cuda
+   (asserted).
 38. sac_host_pendulum: SAC on 16 host Pendulum envs (train_freq 16, batch
    256, (256, 256) nets, 16 gradient steps a round), 6 rounds serialized,
    then overlapped.
@@ -324,6 +325,25 @@ Phases, each timed and printed on its own line:
    episodes) and Pendulum (64) through ``data.serialize.save`` (the port's
    own HuggingFace writer) and ``load``: the three files, float64 rewards in
    the features, every array equal with its dtype; seconds and bytes.
+49. halfcheetah_env (after experts_seals): the port's seals/HalfCheetah
+   engine (``native/mjtree.cpp``, MuJoCo's mj_step for the compiled
+   half_cheetah model): its ``g++`` build, timed; MuJoCo's own 64 env steps
+   (the committed fixture imitation_tpu_torch/envs/assets/
+   half_cheetah_fixture.npz, written by tests/torch_mujoco_tools.py and
+   read here with numpy) within 1e-8; env steps per second at 64 envs on
+   the default threads and on one; the repo's SAC expert, deterministic on
+   the card, 16 envs from reset seed 12345, one 1000-step episode each:
+   the mean return within 2% of the JAX env's figure in the fixture.
+50. gail_seals_half_cheetah (after bc_dict_obs): phase 37's trainer on the
+   real env, bench.py:106-180's main path: 64 port HalfCheetah envs, the 48
+   expert episodes (48,000 rows), serialized and overlapped, each a
+   warm-up round, 2 timed rounds (B1 once at [64, 64] and B2 8 times a
+   round at demo [48000], replay [512], B = 8192, asserted) and 2 under the
+   ``PhaseTimer``; chunk [64, 64] float32 on cuda, finite losses.
+51. cli_gail_seals_half_cheetah (with the CLI phases): ``train_adversarial
+   gail with gail_seals_half_cheetah total_timesteps=8192`` (2 rounds at
+   the tuned widths: B1 2 and B2 16, asserted), then ``eval_policy with
+   expert.policy_type=saved`` of the SAC expert on 64 port envs.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -361,7 +381,8 @@ Every path (gail, airl, airl_fused, airl_cli, rl, airl_sac,
 airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
-bc_nature_cnn, cli_gail_cartpole, cli_airl_pendulum, cli_rl_pendulum,
+bc_nature_cnn, gail_seals_half_cheetah, cli_gail_cartpole,
+cli_gail_seals_half_cheetah, cli_airl_pendulum, cli_rl_pendulum,
 cli_preference_pendulum, the examples that launch a kernel (ex_t03_gail,
 ex_t04_airl, ex_t05_rlhf, ex_t05a_rlhf_cnn, ex_t07_density,
 ex_t10_custom_env, ex_quickstart, ex_rlhf_example), gail_host_pendulum,
@@ -638,6 +659,11 @@ def check_kernels(torch, dev):
     # envs: 64 scripted episodes of 200 rows, a replay ring of 512 rows, demo
     # batch 8192 (the AIRL Pendulum fields).
     host_gail = check_fused("GAIL disc step over host Pendulum", 12800, 512, 8192, airl_kinds)
+    # GAIL at the same config over 64 seals/HalfCheetah-v1 envs: the 48
+    # expert episodes (48,000 rows), obs/next_obs [., 18] f32 (72-byte rows),
+    # acts [., 6] f32, dones [.] f32.
+    hc_kinds = (((18,), f32, 0), ((6,), f32, 0), ((18,), f32, 0), ((), f32, 0))
+    hc_gail = check_fused("GAIL disc step over seals/HalfCheetah", 48000, 512, 8192, hc_kinds)
     # The GAIL and AIRL tutorials' and the quickstart's disc step: 24 scripted
     # CartPole episodes of 200 rows, a replay ring of 8 envs x 128 steps, demo
     # batch 256.
@@ -666,6 +692,7 @@ def check_kernels(torch, dev):
     airl_cli_row = time_b2(torch, "kernels", "AIRL disc step at the CLI defaults (4 fields)", *airl_cli, 1024)
     gail_cli_row = time_b2(torch, "kernels", "GAIL disc step at gail_cartpole (4 fields)", *gail_cli, 1024)
     host_row = time_b2(torch, "kernels", "GAIL disc step over host Pendulum (4 fields)", *host_gail, 8192)
+    hc_row = time_b2(torch, "kernels", "GAIL disc step over seals/HalfCheetah (4 fields)", *hc_gail, 8192)
     tutorial_row = time_b2(torch, "kernels", "GAIL disc step of the tutorials (4 fields)", *tutorial, 256)
     pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
     car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
@@ -689,6 +716,8 @@ def check_kernels(torch, dev):
         gail_cartpole=dict(gail_cli_row, shape="demo [5000], replay [8192], B=1024, the GAIL fields"),
         gail_host_pendulum=dict(host_row, shape="demo [12800], replay [512], B=8192; obs/next_obs [., 3] f32, "
                                                 "acts [., 1] f32, dones [.] f32"),
+        gail_seals_half_cheetah=dict(hc_row, shape="demo [48000], replay [512], B=8192; obs/next_obs [., 18] "
+                                                    "f32, acts [., 6] f32, dones [.] f32"),
         tutorial_disc_step=dict(tutorial_row, shape="demo [4800], replay [1024], B=256, the GAIL fields: the GAIL "
                                                     "and AIRL tutorials' and the quickstart's disc step"),
         pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
@@ -2586,8 +2615,10 @@ def run_bc_seals_half_cheetah(torch, dev, epochs=2):
     benchmarking/run_parity.py's HalfCheetah settings (FeedForward32 with
     normalize_features, batch 64, l2 5.73e-3, lr 8.06e-3), ``epochs`` epochs
     instead of 20: one host read per epoch, loss falling and prob_true_act
-    rising on the demos, steps/s, 50 profiled steps, and a save/load round
-    trip. Its returns need MuJoCo, which the card's machine lacks."""
+    rising on the demos, steps/s, 50 profiled steps, a save/load round
+    trip, and the BC policy's return on the port's HalfCheetah env
+    (deterministic, 16 envs from reset seed 12345, one 1000-step episode
+    each; finite, printed, not gated: 2 epochs)."""
     import tempfile
 
     from imitation_tpu_torch.algorithms.bc import BC
@@ -2626,6 +2657,13 @@ def run_bc_seals_half_cheetah(torch, dev, epochs=2):
     log(phase, f"save_policy + load_policy_from_path: every weight and statistic equal: {same}")
     if not same:
         raise AssertionError(f"{phase}: the reloaded policy differs from the trained one")
+    t0 = time.perf_counter()
+    ret = hc_returns(torch, dev, bc.policy.deterministic_fn())
+    log(phase, f"the BC policy on the port's {HC_ENV}, deterministic, 16 envs x 1000 steps from seed 12345 in "
+               f"{time.perf_counter() - t0:.2f} s: return mean {ret.mean():.6g} (std {ret.std():.4g}, min "
+               f"{ret.min():.6g}, max {ret.max():.6g})")
+    if not all(math.isfinite(x) for x in ret):
+        raise AssertionError(f"{phase}: non-finite returns")
 
 
 def run_bc_dict_obs(torch, dev, n=65_536, batch_size=256, epochs=2):
@@ -2780,6 +2818,73 @@ def run_cli_gail_cartpole(torch, dev, root):
                f"{batch[0].shape[0]} replay rows: max abs diff " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     if max(errs.values()) > 1e-6:
         raise AssertionError(f"{phase}: the reloaded checkpoint disagrees with the trainer: {errs}")
+    return {phase: launches}
+
+
+def run_cli_gail_seals_half_cheetah(torch, dev, root):
+    """``train_adversarial gail with gail_seals_half_cheetah
+    total_timesteps=8192``: the tuned config at its widths (64 envs x 64
+    steps of the port's HalfCheetah, PPO 64 minibatches x 5 epochs, demo
+    batch 8192, replay 512, 8 disc updates, the 48 expert episodes), 2
+    rounds: s per round, B1 2 launches at [64, 64] and B2 16 (asserted),
+    imit_stats; then ``eval_policy`` of the SAC expert on the port's env
+    (``expert.policy_type=saved``, 64 envs, the CLI's 50 episodes):
+    return printed, 1000-step episodes and a finite return asserted."""
+    from imitation_tpu_torch.algorithms.adversarial import common
+    from imitation_tpu_torch.envs.mujoco_native import MujocoLockstepVectorEnv
+
+    phase = "cli_gail_seals_half_cheetah"
+    log(phase, "cut: total_timesteps 8,192 instead of gail_seals_half_cheetah.json's 10,000,000 (2 rounds); "
+               "widths as tuned")
+    trainers, ends = [], []
+    train = common.AdversarialTrainer.train
+
+    def timed_train(self, total_timesteps, callback=None):
+        trainers.append(self)
+
+        def round_end(r):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if callback is not None:
+                callback(r)
+
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return train(self, total_timesteps, callback=round_end)
+
+    common.AdversarialTrainer.train = timed_train
+    try:
+        zero_counts()
+        result, _ = cli_run(torch, phase, "train_adversarial",
+                            ["gail", "with", "gail_seals_half_cheetah", "total_timesteps=8192"], root)
+        launches = counts()
+    finally:
+        common.AdversarialTrainer.train = train
+    (trainer,) = trainers
+    ppo = trainer.gen_algo.config
+    got = (type(trainer.venv).__name__, trainer.venv.num_envs, ppo.n_steps, ppo.n_minibatches, ppo.n_epochs,
+           trainer.demo_batch_size, trainer.n_disc_updates_per_round, trainer._demo_store.num_samples,
+           trainer.device.type)
+    want = (MujocoLockstepVectorEnv.__name__, 64, 64, 64, 5, 8192, 8, 48_000, torch.device(dev).type)
+    if got != want:
+        raise AssertionError(f"{phase}: not gail_seals_half_cheetah's widths on the card: {got}")
+    per_round = [b - a for a, b in zip(ends, ends[1:])]
+    log(phase, f"{len(per_round)} rounds of 64 envs x 64 steps: {', '.join(f'{x:.3f}' for x in per_round)} "
+               f"s per round; launches {launches}")
+    if launches != {"gae": 2, "assemble_rows": 16}:
+        raise AssertionError(f"{phase}: launches {launches}, expected B1 2 and B2 16")
+    stats = result["imit_stats"]
+    finite_stats(phase, stats)
+    log(phase, f"imit_stats ({stats_line(stats)})")
+    zero_counts()
+    stats, _ = cli_run(torch, "cli_eval_half_cheetah", "eval_policy", [
+        "with", "expert.policy_type=saved",
+        f"expert.loader_kwargs.path={os.path.join(EXPERTS, 'seals_half_cheetah', 'policy')}",
+        f"env_name={HC_ENV}", "num_envs=64"], root)
+    finite_stats(phase, stats)
+    log(phase, f"eval_policy of the SAC expert (sampled actions): {stats_line(stats)}")
+    if stats["len_mean"] != 1000 or stats["n_traj"] < 50 or any(counts().values()):
+        raise AssertionError(f"{phase}: eval_policy {stats}, launches {counts()}")
     return {phase: launches}
 
 
@@ -3290,20 +3395,19 @@ def run_host_envs(torch, dev, n=64, steps=2000):
     return build_s, rates
 
 
-def host_gail(torch, dev, demos, overlap, num_envs=64):
-    """A GAIL trainer at ``HOST_GAIL_HPS`` over ``num_envs`` host
-    Pendulum-v1 envs (200-step horizon), a (32, 32) ``ActorCriticPolicy``
-    with ``normalize_features`` and ``BasicRewardNet(normalize_input=True)``.
-    Its generator's ``process_chunk`` records each chunk's field devices."""
+def host_gail(torch, dev, demos, overlap, venv):
+    """A GAIL trainer at ``HOST_GAIL_HPS`` over the host vector env ``venv``,
+    a (32, 32) ``ActorCriticPolicy`` with ``normalize_features`` and
+    ``BasicRewardNet(normalize_input=True)``. Its generator's
+    ``process_chunk`` records each chunk's field devices."""
     from imitation_tpu_torch.algorithms.adversarial.gail import GAIL
     from imitation_tpu_torch.data.rollout import CHUNK_FIELDS
     from imitation_tpu_torch.models.policies import ActorCriticPolicy
-    from imitation_tpu_torch.native import CppVectorEnv
     from imitation_tpu_torch.rewards.reward_nets import BasicRewardNet
     from imitation_tpu_torch.rl.ppo import PPOConfig
 
     demo_bs, replay, n_disc, rl_batch, mb, clip, ent, lam, gamma, lr, mgn, epochs, vf = HOST_GAIL_HPS
-    venv = CppVectorEnv("Pendulum-v1", num_envs=num_envs, seed=0, device=dev)
+    num_envs = venv.num_envs
     obs_space, act_space = venv.observation_space, venv.action_space
     trainer = GAIL(
         demonstrations=demos, demo_batch_size=demo_bs, venv=venv,
@@ -3321,6 +3425,7 @@ def host_gail(torch, dev, demos, overlap, num_envs=64):
     def recording(state, env_state, chunk, generator, reward_params=None):
         trainer.chunk_devices.update(getattr(chunk, f).device.type for f in CHUNK_FIELDS)
         trainer.chunk_devices.update(v.device.type for v in chunk.aux.values())
+        trainer.chunk_dtypes = {f: getattr(chunk, f).dtype for f in ("obs", "next_obs")}
         trainer.chunk_shape = tuple(chunk.acts.shape[:2])
         return process(state, env_state, chunk, generator, reward_params)
 
@@ -3338,20 +3443,90 @@ def close_host_trainer(trainer) -> None:
     trainer.venv.close()
 
 
-def run_gail_host_pendulum(torch, dev, reps=1, rounds=2):
+def host_gail_modes(torch, dev, phase, demos, make_venv, modes, rounds=2):
+    """GAIL at bench.py's main-path learner configuration over the host env
+    ``make_venv()`` (64 envs), in each of ``modes`` (``overlap_collection``
+    False, True) on a fresh trainer (bench.py:187-196): a warm-up round,
+    ``rounds`` timed rounds of ``train`` with the launch counts set to 0
+    just before and read just after (B1 once and B2 8 times a round,
+    asserted), then ``rounds`` more under the generator's ``PhaseTimer``
+    (an overlapped ``train`` call collects its first chunk in the
+    foreground and joins the rest). Parameters, buffers and every chunk
+    field on CUDA, the chunk's observations float32 (asserted); the reward
+    on the card against a CPU copy on the last mode's trainer. Returns the
+    launches of the last mode's timed rounds and {mode: s per round}."""
+    from imitation_tpu_torch.util.profiling import PhaseTimer
+
+    n_disc = HOST_GAIL_HPS[2]
+    results, launches = {}, None
+    for overlap in modes:
+        mode = "overlapped" if overlap else "serialized"
+        trainer = host_gail(torch, dev, demos, overlap, make_venv())
+        try:
+            t0 = time.perf_counter()
+            trainer.train(trainer.gen_train_timesteps)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            ends = []
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer.train(rounds * trainer.gen_train_timesteps, callback=lambda r: ends.append(time.perf_counter()))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            got = counts()
+            want = {"gae": rounds, "assemble_rows": n_disc * rounds}
+            if got != want:
+                raise AssertionError(f"{phase}: {mode} launches {got}, expected {want}")
+            launches = got
+            per = [ends[0] - t0] + [b - a for a, b in zip(ends, ends[1:])]
+            timer = PhaseTimer()
+            trainer.gen_algo.phase_timer = timer
+            t1 = time.perf_counter()
+            trainer.train(rounds * trainer.gen_train_timesteps)
+            torch.cuda.synchronize()
+            split = {k[5:-2]: v for k, v in timer.report().items() if not k.endswith("_mean_s")}
+            results[overlap] = elapsed / rounds
+            log(phase, f"{mode}: warm-up {warm:.3f} s; {rounds} rounds in {elapsed:.3f} s = "
+                       f"{', '.join(f'{x:.3f}' for x in per)} s ({trainer.gen_train_timesteps} env steps "
+                       f"each, {trainer.gen_train_timesteps * rounds / elapsed:.0f} env steps/s); launches {got}; "
+                       f"{rounds} more under the PhaseTimer in {time.perf_counter() - t1:.3f} s: "
+                       + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(split.items()))
+                       + f"; {thread_counts(torch, trainer.venv)}")
+            row = trainer.logger.rows[-1]
+            log(phase, "logged: " + ", ".join(f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
+                "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/true_rew_mean",
+                "mean/gen/relabeled_rew_mean", "mean/disc/disc_loss", "mean/disc/disc_acc")))
+            if not all(math.isfinite(row[k]) for k in ("mean/gen/loss", "mean/disc/disc_loss")):
+                raise AssertionError(f"{phase}: non-finite losses")
+            tensors = (list(trainer.policy.parameters()) + list(trainer.policy.buffers())
+                       + list(trainer.reward_net.parameters()) + list(trainer.reward_net.buffers())
+                       + [getattr(trainer._demo_store.batch, f) for f in ("obs", "acts")])
+            if not all(t.device == dev for t in tensors) or trainer.chunk_devices != {dev.type}:
+                raise AssertionError(f"{phase}: parameters or chunks off the card: {trainer.chunk_devices}")
+            if set(trainer.chunk_dtypes.values()) != {torch.float32}:
+                raise AssertionError(f"{phase}: chunk observations {trainer.chunk_dtypes}, expected float32")
+            if trainer.chunk_shape != (64, 64):
+                raise AssertionError(f"{phase}: chunk {trainer.chunk_shape}, expected [64, 64]")
+            if not all(bool(torch.isfinite(p).all()) for p in trainer.policy.parameters()):
+                raise AssertionError(f"{phase}: non-finite policy parameters")
+            if overlap == modes[-1]:
+                reward_cpu_check(torch, phase, trainer)
+        finally:
+            close_host_trainer(trainer)
+    log(phase, f"policy, reward net, demo store and every chunk field (aux included) on cuda; chunk [64, 64] "
+               f"float32; s/round " + ", ".join(f"{'overlapped' if o else 'serialized'} {x:.4f}"
+                                                for o, x in results.items()))
+    return launches, results
+
+
+def run_gail_host_pendulum(torch, dev, rounds=2):
     """GAIL at bench.py's main-path learner configuration over 64 host
-    Pendulum-v1 envs, serialized and overlapped, each on ``reps`` fresh
-    trainers alternately (bench.py:187-196): a warm-up round, ``rounds``
-    timed rounds of ``train`` with the launch counts set to 0 just before
-    and read just after (B1 once and B2 8 times a round, asserted), then, on
-    the last pair of trainers, ``rounds`` more under the generator's
-    ``PhaseTimer`` (an overlapped ``train`` call collects its first chunk in
-    the foreground and joins the rest). Parameters, buffers and every chunk
-    field on CUDA (asserted); the reward on the card against a CPU copy."""
+    Pendulum-v1 envs (200-step horizon), serialized only (the HalfCheetah
+    phase runs both modes on the real env): ``host_gail_modes``, on 64
+    scripted episodes made through ``generate_trajectories_host``."""
     from imitation_tpu_torch.data import rollout
     from imitation_tpu_torch.native import CppVectorEnv
     from imitation_tpu_torch.testing import experts
-    from imitation_tpu_torch.util.profiling import PhaseTimer
 
     phase = "gail_host_pendulum"
     t0 = time.perf_counter()
@@ -3366,70 +3541,129 @@ def run_gail_host_pendulum(torch, dev, reps=1, rounds=2):
     if rows != 12_800:
         raise AssertionError(f"{phase}: {rows} demo rows, expected 64 episodes of 200")
     demo_venv.close()
-    n_disc = HOST_GAIL_HPS[2]
-    results = {False: [], True: []}
-    launches = None
-    for rep in range(reps):
-        for overlap in (False, True):
-            mode = "overlapped" if overlap else "serialized"
-            trainer = host_gail(torch, dev, demos, overlap)
-            try:
-                t0 = time.perf_counter()
-                trainer.train(trainer.gen_train_timesteps)
-                torch.cuda.synchronize()
-                warm = time.perf_counter() - t0
-                ends = []
-                zero_counts()
-                t0 = time.perf_counter()
-                trainer.train(rounds * trainer.gen_train_timesteps, callback=lambda r: ends.append(time.perf_counter()))
-                torch.cuda.synchronize()
-                elapsed = time.perf_counter() - t0
-                got = counts()
-                want = {"gae": rounds, "assemble_rows": n_disc * rounds}
-                if got != want:
-                    raise AssertionError(f"{phase}: {mode} launches {got}, expected {want}")
-                launches = got
-                per = [ends[0] - t0] + [b - a for a, b in zip(ends, ends[1:])]
-                split_msg = ""
-                if rep == reps - 1:
-                    timer = PhaseTimer()
-                    trainer.gen_algo.phase_timer = timer
-                    t1 = time.perf_counter()
-                    trainer.train(rounds * trainer.gen_train_timesteps)
-                    torch.cuda.synchronize()
-                    split = {k[5:-2]: v for k, v in timer.report().items() if not k.endswith("_mean_s")}
-                    split_msg = (f"; {rounds} more under the PhaseTimer in {time.perf_counter() - t1:.3f} s: "
-                                 + ", ".join(f"{k} {v:.4f} s" for k, v in sorted(split.items())))
-                results[overlap].append(elapsed / rounds)
-                log(phase, f"{mode} (rep {rep}): warm-up {warm:.3f} s; {rounds} rounds in {elapsed:.3f} s = "
-                           f"{', '.join(f'{x:.3f}' for x in per)} s ({trainer.gen_train_timesteps} env steps "
-                           f"each, {trainer.gen_train_timesteps * rounds / elapsed:.0f} env steps/s); "
-                           f"launches {got}{split_msg}; {thread_counts(torch, trainer.venv)}")
-                row = trainer.logger.rows[-1]
-                log(phase, "logged: " + ", ".join(f"{k.split('/')[-1]} {row[k]:.4g}" for k in (
-                    "mean/gen/loss", "mean/gen/ep_return_mean", "mean/gen/true_rew_mean",
-                    "mean/gen/relabeled_rew_mean", "mean/disc/disc_loss", "mean/disc/disc_acc")))
-                if not all(math.isfinite(row[k]) for k in ("mean/gen/loss", "mean/disc/disc_loss")):
-                    raise AssertionError(f"{phase}: non-finite losses")
-                tensors = (list(trainer.policy.parameters()) + list(trainer.policy.buffers())
-                           + list(trainer.reward_net.parameters()) + list(trainer.reward_net.buffers())
-                           + [getattr(trainer._demo_store.batch, f) for f in ("obs", "acts")])
-                if not all(t.device == dev for t in tensors) or trainer.chunk_devices != {dev.type}:
-                    raise AssertionError(f"{phase}: parameters or chunks off the card: {trainer.chunk_devices}")
-                if trainer.chunk_shape != (64, 64):
-                    raise AssertionError(f"{phase}: chunk {trainer.chunk_shape}, expected [64, 64]")
-                if not all(bool(torch.isfinite(p).all()) for p in trainer.policy.parameters()):
-                    raise AssertionError(f"{phase}: non-finite policy parameters")
-                if rep == reps - 1 and overlap:
-                    reward_cpu_check(torch, phase, trainer)
-            finally:
-                close_host_trainer(trainer)
-    s_ser, s_ovl = min(results[False]), min(results[True])
-    log(phase, f"policy, reward net, demo store and every chunk field (aux included) on cuda; chunk [64, 64]; "
-               f"s/round serialized {', '.join(f'{x:.4f}' for x in results[False])}, overlapped "
-               f"{', '.join(f'{x:.4f}' for x in results[True])}; best {s_ser:.4f} / {s_ovl:.4f}: "
-               f"overlap speedup {s_ser / s_ovl:.4f}x, winner {'overlapped' if s_ovl < s_ser else 'serialized'}")
-    return {phase: launches}, s_ser, s_ovl
+    launches, results = host_gail_modes(
+        torch, dev, phase, demos, lambda: CppVectorEnv("Pendulum-v1", num_envs=64, seed=0, device=dev),
+        (False,), rounds)
+    return {phase: launches}, results[False]
+
+
+HC_ENV = "seals/HalfCheetah-v1"
+HC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "imitation_tpu_torch", "envs", "assets",
+                          "half_cheetah_fixture.npz")
+
+
+def hc_returns(torch, dev, act, num_envs=16, seed=12345):
+    """Returns of one 1000-step episode in each of ``num_envs`` port
+    HalfCheetah envs from reset ``seed``, under ``act`` (a rollout closure
+    on ``dev``) fed float32 observations on the card."""
+    import numpy as np
+
+    from imitation_tpu_torch.envs.mujoco_native import MujocoLockstepVectorEnv
+
+    venv = MujocoLockstepVectorEnv(HC_ENV, num_envs=num_envs, device=dev)
+    try:
+        obs, ret = venv.reset(seed=seed), np.zeros(num_envs)
+        for _ in range(venv.max_episode_steps):
+            with torch.inference_mode():
+                acts = act(torch.from_numpy(obs.astype(np.float32)).to(dev))[0]
+            if acts.device != dev:
+                raise AssertionError(f"hc_returns: actions on {acts.device}, expected {dev}")
+            out = venv.step(acts.cpu().numpy())
+            ret += out["reward"]
+            obs = out["obs"]
+        if not out["truncated"].all():
+            raise AssertionError("hc_returns: the episodes did not end at the horizon")
+        return ret
+    finally:
+        venv.close()
+
+
+def run_halfcheetah_env(torch, dev, n=64, steps=500):
+    """The port's seals/HalfCheetah engine (``native/mjtree.cpp``): its
+    ``g++`` build at first use, timed; MuJoCo's own 64 env steps of the
+    committed fixture (states in contact, actions beyond the control range)
+    stepped at once and held within 1e-8 of their scale (rewards within
+    1e-6); env steps per second at ``n`` envs under random actions, on the
+    env's default threads and on one; and the repo's SAC expert,
+    deterministic on the card, over 16 envs from reset seed 12345 (one
+    1000-step episode each): the mean return within 2% of the JAX env's
+    figure in the fixture, every return finite. Reads the fixture with
+    numpy only: MuJoCo is not on this machine."""
+    import numpy as np
+
+    from imitation_tpu_torch.envs.mujoco_native import MujocoEngine, MujocoLockstepVectorEnv, load_model
+    from imitation_tpu_torch.native import build
+    from imitation_tpu_torch.policies import serialize
+
+    phase = "halfcheetah_env"
+    t0 = time.perf_counter()
+    build.load_mjtree()
+    build_s = time.perf_counter() - t0
+    log(phase, f"g++ build + load {build_s:.2f} s -> {build.library_path(build.MJTREE_SOURCE).name}")
+    fx = np.load(HC_FIXTURE)
+    engine = MujocoEngine(load_model("half_cheetah"))
+    q, v = fx["qpos"].copy(), fx["qvel"].copy()
+    engine.step(q, v, fx["act"], 5)
+    engine.close()
+    errs = {k: float(np.abs(got - fx[k]).max() / max(1.0, np.abs(fx[k]).max()))
+            for k, got in (("next_qpos", q), ("next_qvel", v))}
+    reward = (q[:, 0] - fx["qpos"][:, 0]) / 0.05 - 0.1 * np.sum(np.square(fx["act"].astype(np.float64)), 1)
+    errs["reward"] = float(np.abs(reward - fx["reward"]).max() / max(1.0, np.abs(fx["reward"]).max()))
+    log(phase, f"MuJoCo's fixture, {len(q)} env steps ({int((fx['ncon'] > 0).sum())} starting in contact, up to "
+               f"{int(fx['ncon'].max())} contacts): max error over scale " + ", ".join(
+                   f"{k} {e:.3g}" for k, e in errs.items()) + " (limits 1e-8, 1e-8, 1e-6)")
+    if max(errs["next_qpos"], errs["next_qvel"]) > 1e-8 or errs["reward"] > 1e-6:
+        raise AssertionError(f"{phase}: the engine disagrees with MuJoCo's fixture: {errs}")
+    rng = np.random.default_rng(0)
+    rates = {}
+    for threads in (None, 1):
+        venv = MujocoLockstepVectorEnv(HC_ENV, num_envs=n, num_threads=threads, device=dev)
+        venv.reset(seed=0)
+        acts = rng.uniform(-1, 1, (steps, n, 6)).astype(np.float32)
+        t0 = time.perf_counter()
+        for a in acts:
+            venv.step(a)
+        secs = time.perf_counter() - t0
+        rates[venv.num_threads] = n * steps / secs
+        log(phase, f"{HC_ENV} x{n}: {steps} steps in {secs:.3f} s = {n * steps / secs:.0f} env steps/s "
+                   f"({1e3 * secs / steps:.4f} ms a step call of 5 substeps; {thread_counts(torch, venv)})")
+        venv.close()
+    expert = serialize.load_policy_from_path(os.path.join(EXPERTS, "seals_half_cheetah", "policy"), device=dev)
+    if not all(p.device == dev for p in expert.parameters()):
+        raise AssertionError(f"{phase}: the expert is off the card")
+    t0 = time.perf_counter()
+    ret = hc_returns(torch, dev, expert.deterministic_fn())
+    secs = time.perf_counter() - t0
+    want = float(fx["expert_returns"].mean())
+    log(phase, f"SAC expert, deterministic on the card, 16 envs x 1000 steps from seed 12345 in {secs:.2f} s: "
+               f"return mean {ret.mean():.6g} (std {ret.std():.4g}, min {ret.min():.6g}, max {ret.max():.6g}); "
+               f"the JAX env's {want:.6g} (fixture): {100 * (ret.mean() / want - 1):+.3f}% (limit 2%)")
+    if not np.isfinite(ret).all() or abs(ret.mean() - want) > 0.02 * abs(want):
+        raise AssertionError(f"{phase}: expert return {ret.mean()} against the JAX env's {want}")
+    return dict(build_s=build_s, rates=rates, fixture=errs, expert=float(ret.mean()))
+
+
+def run_gail_seals_half_cheetah(torch, dev, rounds=2):
+    """GAIL at bench.py:106-180's configuration on the real env: 64
+    seals/HalfCheetah-v1 envs of the port's engine, run_parity.py:57's
+    ("gail", "seals_half_cheetah") HPs (``HOST_GAIL_HPS``) and the repo's
+    48 expert episodes (output/experts/seals_half_cheetah/rollouts, 48,000
+    rows), serialized and overlapped (``host_gail_modes``): B1 at [64, 64]
+    once and B2 8 times a round at demo [48000], replay [512], B = 8192."""
+    from imitation_tpu_torch.data import serialize as data_serialize
+    from imitation_tpu_torch.envs.mujoco_native import MujocoLockstepVectorEnv
+
+    phase = "gail_seals_half_cheetah"
+    t0 = time.perf_counter()
+    demos = list(data_serialize.load(os.path.join(EXPERTS, "seals_half_cheetah", "rollouts")))
+    rows = sum(len(d) for d in demos)
+    log(phase, f"expert demos: {len(demos)} episodes, {rows} rows, read in {time.perf_counter() - t0:.2f} s")
+    if (len(demos), rows) != (48, 48_000):
+        raise AssertionError(f"{phase}: {len(demos)} episodes of {rows} rows, expected 48 of 1000")
+    launches, results = host_gail_modes(
+        torch, dev, phase, demos, lambda: MujocoLockstepVectorEnv(HC_ENV, num_envs=64, seed=0, device=dev),
+        (False, True), rounds)
+    return {phase: launches}, results
 
 
 def run_sac_host(torch, dev, num_envs=16, rounds=6):
@@ -4171,14 +4405,26 @@ def main() -> int:
 
     # The repo's seals experts and demos read by the port's own readers, BC
     # on them and BC on dict observations: neither kernel is on these paths.
+    # The port's seals/HalfCheetah engine against MuJoCo's fixture and the
+    # JAX env's expert figure (neither kernel), then GAIL over 64 of its envs
+    # at bench.py's main path (B1 at [64, 64] once a round, B2 8 times a
+    # round at 2 x 8192 rows), serialized and overlapped.
     t_seals = time.perf_counter()
     for phase, fn in (("experts_seals", lambda: run_experts_seals(torch, dev)),
+                      ("halfcheetah_env", lambda: run_halfcheetah_env(torch, dev)),
                       ("bc_seals_half_cheetah", lambda: run_bc_seals_half_cheetah(torch, dev)),
                       ("bc_dict_obs", lambda: run_bc_dict_obs(torch, dev))):
         t0 = time.perf_counter()
         zero_counts()
         fn()
+        if any(counts().values()):
+            raise AssertionError(f"{phase}: kernel launches {counts()} on a path without either kernel")
         log(phase, f"done in {time.perf_counter() - t0:.2f} s; kernel launches {counts()}")
+    t0 = time.perf_counter()
+    launches, s_hc = run_gail_seals_half_cheetah(torch, dev)
+    paths.update(launches)
+    log("gail_seals_half_cheetah", f"done in {time.perf_counter() - t0:.2f} s; s per round serialized "
+                                   f"{s_hc[False]:.3f}, overlapped {s_hc[True]:.3f}")
     log("seals", f"the seals and dict-observation phases took {time.perf_counter() - t_seals:.2f} s")
 
     # The CLI: each command through ``ex.run_cli`` as ``python -m
@@ -4186,6 +4432,7 @@ def main() -> int:
     t_cli = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="itt_cli_") as root:
         for phase, fn in (("cli_gail_cartpole", lambda: run_cli_gail_cartpole(torch, dev, root)),
+                          ("cli_gail_seals_half_cheetah", lambda: run_cli_gail_seals_half_cheetah(torch, dev, root)),
                           ("cli_airl_pendulum", lambda: run_cli_airl_pendulum(torch, dev, root)),
                           ("cli_imitation_cartpole", lambda: run_cli_imitation_cartpole(torch, dev, root)),
                           ("cli_preference_pendulum", lambda: run_cli_preference_pendulum(torch, dev, root)),
@@ -4215,17 +4462,16 @@ def main() -> int:
     # The host-env path: the C++ engine on the card's host, GAIL at bench.py's
     # main-path learner configuration over 64 host Pendulum-v1 envs (B1 at
     # [64, 64] once a round, B2 8 times a round at 2 x 8192 rows), serialized
-    # and overlapped; then short host phases of SAC, SQIL (DQN, overlapped),
-    # DAgger and RLHF with exploration.
+    # (gail_seals_half_cheetah runs both modes); then short host phases of
+    # SAC, SQIL (DQN, overlapped), DAgger and RLHF with exploration.
     t_host = time.perf_counter()
     t0 = time.perf_counter()
     run_host_envs(torch, dev)
     log("host_envs", f"done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    launches, s_ser, s_ovl = run_gail_host_pendulum(torch, dev)
+    launches, s_ser = run_gail_host_pendulum(torch, dev)
     paths.update(launches)
-    log("gail_host_pendulum", f"done in {time.perf_counter() - t0:.2f} s; {s_ser:.3f} s per round "
-                              f"serialized, {s_ovl:.3f} overlapped")
+    log("gail_host_pendulum", f"done in {time.perf_counter() - t0:.2f} s; {s_ser:.3f} s per round serialized")
     for phase, fn in (("sac_host_pendulum", lambda: run_sac_host(torch, dev)),
                       ("sqil_host_cartpole", lambda: run_sqil_host(torch, dev)),
                       ("dagger_host_cartpole", lambda: run_dagger(

@@ -42,13 +42,32 @@ CHUNK_FIELDS = ("obs", "acts", "rews", "next_obs", "terminated", "truncated",
                 "episode_return", "episode_length")
 
 
+class _ModuleFn:
+    """``make(module)`` as a callable that pickles as ``(module, make)``
+    (the closure ``make`` returns does not pickle; ``make`` does where it
+    is a module-level or class-level function or a ``functools.partial``
+    of one), so a DAgger checkpoint holds an expert policy, as the JAX
+    package's cloudpickle does."""
+
+    def __init__(self, module: torch.nn.Module, make: Callable[[torch.nn.Module], PolicyApply]):
+        self.module, self.rebind = module, make
+        self._fn = make(module)
+
+    def __call__(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+    def __getstate__(self):
+        return {"module": self.module, "make": self.rebind}
+
+    def __setstate__(self, state):
+        self.__init__(state["module"], state["make"])
+
+
 def module_fn(module: torch.nn.Module, make: Callable[[torch.nn.Module], PolicyApply]) -> PolicyApply:
     """``make(module)``: a rollout policy that reads ``module``'s weights,
     marked with ``module`` and ``rebind = make`` so that a ``HostCollector``
     can build the same policy over a CPU copy of the module."""
-    fn = make(module)
-    fn.module, fn.rebind = module, make
-    return fn
+    return _ModuleFn(module, make)
 
 
 @dataclasses.dataclass
@@ -133,6 +152,11 @@ def chunk_to_transitions(chunk: RolloutChunk) -> types.TransitionBatch:
     )
 
 
+def _f32(obs: np.ndarray) -> np.ndarray:
+    """A float64 observation as float32; any other unchanged (no copy)."""
+    return obs.astype(np.float32) if obs.dtype == np.float64 else obs
+
+
 class HostCollector:
     """Rollout collection for a host vector env (``venv.is_host``).
 
@@ -151,7 +175,11 @@ class HostCollector:
     the envs, ``parallel.distributed.local_env_count``) they are that
     block of the whole batch's draws.
     ``collect`` stacks each field in numpy and copies it to ``venv.device``
-    (or ``device``) once.
+    (or ``device``) once. A float64 observation (the MuJoCo envs' state)
+    is cast to float32 here, where it enters the collector, so the policy
+    and the chunk's ``obs`` and ``next_obs`` see float32, as in the JAX
+    package, where JAX casts it when it converts it; float32 observations
+    pass unchanged.
     """
 
     def __init__(self, venv, policy_apply: PolicyApply, seed: int = 0):
@@ -165,7 +193,7 @@ class HostCollector:
     def reseed(self, seed: int) -> None:
         """Resets the env and the generator for a fresh collection pass."""
         self.generator = torch.Generator().manual_seed(int(seed))
-        self.obs = self.venv.reset(seed=seed)
+        self.obs = _f32(self.venv.reset(seed=seed))
 
     def set_policy(self, policy_apply: PolicyApply) -> None:
         """Collects with ``policy_apply`` from now on, over a refreshed
@@ -197,12 +225,12 @@ class HostCollector:
                 aux = {k: v.numpy() for k, v in aux.items()}
             out = self.venv.step(acts)
             for k, v in (("obs", self.obs), ("acts", acts), ("rews", out["reward"]),
-                         ("next_obs", out["terminal_obs"]), ("terminated", out["terminated"]),
+                         ("next_obs", _f32(out["terminal_obs"])), ("terminated", out["terminated"]),
                          ("truncated", out["truncated"]), ("episode_return", out["episode_return"]),
                          ("episode_length", out["episode_length"])):
                 recs[k].append(v)
             aux_recs.append(aux)
-            self.obs = out["obs"]
+            self.obs = _f32(out["obs"])
         dev = self.venv.device if device is None else device
 
         def put(arrays):

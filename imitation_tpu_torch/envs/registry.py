@@ -1,9 +1,11 @@
 """Environment registry: name -> batched on-device Env factory.
 
 Port of ``imitation_tpu/envs/registry.py`` for the device envs: the
-classic-control names and their seals fixed-horizon variants. The C++
-engine's host envs are reached through ``imitation_tpu_torch.native``, as in
-the JAX package; the MuJoCo and gym-bridge envs are not ported yet.
+classic-control names and their seals fixed-horizon variants, and the
+seals MuJoCo envs, which ``make_vec_env`` returns as lockstep host envs
+(``envs/mujoco_native.py``). The C++ classic-control engine's host envs are
+reached through ``imitation_tpu_torch.native``, as in the JAX package; the
+gym bridge is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +43,23 @@ def make_vec_env(
     device: Optional[Device] = None,
     **env_kwargs,
 ) -> VectorEnv:
-    """Builds a VectorEnv on ``device`` (CUDA unless the caller says "cpu")."""
+    """Builds a VectorEnv on ``device`` (CUDA unless the caller says "cpu").
+
+    A seals MuJoCo name gives ``mujoco_native.MujocoLockstepVectorEnv``, a
+    host vector env whose chunks go to ``device``, as the JAX package
+    returns its lockstep env; ``lockstep=False`` or env arguments ask for
+    the gym bridge, which the port does not have.
+    """
+    from imitation_tpu_torch.envs import mujoco_native
+
+    if mujoco_native.supports(name):
+        if not env_kwargs.pop("lockstep", True) or env_kwargs:
+            raise NotImplementedError(
+                f"{name}: lockstep=False or env arguments ({sorted(env_kwargs)}) need the gym bridge, "
+                "which is not ported")
+        return mujoco_native.MujocoLockstepVectorEnv(
+            name, num_envs=num_envs, max_episode_steps=max_episode_steps, device=device
+        )
     env = make_env(name, **env_kwargs)
     return VectorEnv(
         env,

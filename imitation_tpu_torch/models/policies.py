@@ -33,6 +33,7 @@ closures.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -249,11 +250,11 @@ class ActorCriticPolicy(nn.Module):
 
     def sample_fn(self):
         """(obs, generator) -> (acts, {log_prob, value}) for rollouts."""
-        return module_fn(self, lambda m: m._rollout_fn(deterministic=False))
+        return module_fn(self, functools.partial(ActorCriticPolicy._rollout_fn, deterministic=False))
 
     def deterministic_fn(self):
         """As ``sample_fn``, with the distribution's mode for the action."""
-        return module_fn(self, lambda m: m._rollout_fn(deterministic=True))
+        return module_fn(self, functools.partial(ActorCriticPolicy._rollout_fn, deterministic=True))
 
     def predict(self, obs, deterministic: bool = False, seed: int = 0) -> np.ndarray:
         """SB3-style host prediction: numpy observations in (one, or a batch

@@ -122,8 +122,13 @@ def test_registry_and_default_device():
     assert make_vec_env("CartPole-v0", num_envs=2, device="cpu").max_episode_steps == 200
     assert make_vec_env("CartPole-v1", num_envs=2, device="cpu").max_episode_steps == 500
     assert make_vec_env("seals/CartPole-v0", num_envs=2, device="cpu").env.fixed_horizon
+    venv = make_vec_env("seals/HalfCheetah-v1", num_envs=2, device="cpu")  # the port's host MuJoCo engine
+    assert venv.is_host and venv.device == torch.device("cpu")
+    venv.close()
+    with pytest.raises(NotImplementedError):
+        make_vec_env("seals/Hopper-v1", device="cpu")  # not ported yet
     with pytest.raises(KeyError):
-        make_vec_env("seals/HalfCheetah-v1", device="cpu")  # host MuJoCo: not ported
+        make_vec_env("NoSuchEnv-v0", device="cpu")
     if torch.cuda.is_available():
         assert make_vec_env("CartPole-v1").device.type == "cuda"
     else:
