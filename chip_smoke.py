@@ -21,8 +21,11 @@ Phases, each timed and printed on its own line:
    (demo 5,000 rows, replay 8,192, B = 1024) and over host Pendulum (demo
    12,800 rows, replay 512, B = 8192: the host GAIL phase's) and over
    seals/HalfCheetah (demo 48,000 rows, replay 512, B = 8192, obs/next_obs
-   [., 18] f32, acts [., 6] f32: gail_seals_half_cheetah's), each four
-   fields in one launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
+   [., 18] f32, acts [., 6] f32: gail_seals_half_cheetah's) and at the
+   tuned GAIL configs of seals/Hopper (demo 48,000, replay 4,096, B = 128,
+   48-byte obs rows: the uint4 path), Walker2d (32,000, 16,384, B = 512,
+   72-byte rows) and Swimmer (48,000, 4,096, B = 32, 40-byte rows), each
+   four fields in one launch; pixel CartPole's GAIL disc step (obs/next_obs [., 16, 16, 1] f32,
    1,024-byte rows) and CarRacing-size uint8 rows ([., 96, 96, 3], 27,648
    bytes, 2,048 rows each side, B = 1024; not on a main path); the byte path (uint8 [., 2, 2], bool [.], f16 [., 3], f32
    [., 2, 2]), alone and mixed with word fields and offset bases; the
@@ -32,9 +35,11 @@ Phases, each timed and printed on its own line:
    CUDA events (median of repeats); B1 at [128, 1024], [64, 64],
    [2048, 4096], the CLI's [256, 8], the RLHF paths' [64, 32] and
    [128, 8], density's [64, 16], the pixel tutorial's [32, 8] and
-   gail_cartpole's [128, 64], the tutorials' [64, 8] and [40, 16], B2 per
+   gail_cartpole's [128, 64], the tutorials' [64, 8] and [40, 16],
+   gail_seals_walker's [256, 64], B2 per
    disc step (the CLI defaults', the tutorials',
-   gail_cartpole's, both host GAIL ones and both image-row shapes included). ``device_ms`` is the kernel's own device
+   gail_cartpole's, both host GAIL ones, the three seals configs' and both
+   image-row shapes included). ``device_ms`` is the kernel's own device
    time from a torch.profiler trace (``ms`` is the time per call, wrapper
    and launch included).
 4. reference: one PPO update of a small problem on the GPU against the same
@@ -74,22 +79,23 @@ Phases, each timed and printed on its own line:
    in a temporary scratch dir; then ``save_trainer``,
    ``reconstruct_trainer`` and one more round.
 12. dagger_pendulum: the same on Pendulum-v1, ``ExponentialBetaSchedule(0.7)``
-   and 2000 timesteps.
+   and 2000 timesteps. The DAgger phases (this, dagger_cartpole and
+   dagger_host_cartpole) train BC 2 epochs a round, not
+   ``DEFAULT_N_EPOCHS`` (4), to keep the script within its time.
 13. sac_pendulum: ``SAC.learn`` on 16 device Pendulum-v1 envs at the
    expert-training settings (train_freq 16, 256 gradient steps of batch 256
    a round, (256, 256) actor and critics, lr 3e-4), ``learning_starts`` cut
-   to 1,280: 5 rounds with masked updates (cut from 10 to make room for the
-   examples), then 3 learning rounds (cut from 6 to make room for the host
-   phases) under the
-   CUDA sync debug mode (asserted: no host read); s/round, updates/s, the
+   to 768: 3 rounds with masked updates (cut from 10 to make room for the
+   examples, then from 5 for the seals envs' phases), then 3 learning
+   rounds (cut from 6 to make room for the host phases) under the CUDA
+   sync debug mode (asserted: no host read); s/round, updates/s, the
    actor's forward on the card against the CPU on 4096 replay rows, and one
    profiled round split by ``sac.collect``, ``sac.buffer_store`` and
    ``sac.update`` (kernels and kernel time per update).
 14. sqil_cartpole: ``SQIL.train`` (DQN) on 8 device CartPole-v1 envs at
    benchmarking/run_small_algos.py:52-67 (train_freq 4, batch 64, 4
    gradient steps, lr 1e-4, target copy every 2000 steps, exploration 0.3
-   -> 0.05) on 10 scripted episodes, 10,000 steps (cut from 300,000; 20,000
-   until PR 13).
+   -> 0.05) on 10 scripted episodes, 5,000 steps (cut from 300,000).
 15. sqil_pendulum: ``SQIL.train`` (SAC) on 8 device Pendulum-v1 envs at the
    ``train_imitation sqil`` defaults (learning_starts 500, batch 64, lr
    3e-4) on 10 scripted episodes, 3,000 steps (cut from 10,000).
@@ -133,8 +139,9 @@ Phases, each timed and printed on its own line:
 22. density_pendulum: run_small_algos.py's density run at its widths (16
    envs, the scripted expert's 20+ episodes, STATE_ACTION_DENSITY,
    bandwidth 0.5; PPO n_steps 64, 8 minibatches x 10 epochs, lr 3e-4,
-   gamma 0.95), cut to 4,096 timesteps (4 PPO iterations, cut from 16 to
-   make room for the host phases and the examples): the KDE
+   gamma 0.95), cut to 2,048 timesteps (2 PPO iterations, cut from 16 to
+   make room for the host phases and the examples, then from 4 for the
+   seals envs' phases): the KDE
    reward on the card against a CPU copy for each density type and for
    non-stationary density, expert above random transitions, B1 launched
    once per iteration at [64, 16], s per iteration, one profiled
@@ -200,21 +207,21 @@ Phases, each timed and printed on its own line:
    instead of 16), 2 epochs: accuracy above 0.9, the policy on the card
    against the CPU. Neither kernel is on phases 28-30.
 31. cli_gail_cartpole: ``python -m imitation_tpu_torch train_adversarial gail
-   with gail_cartpole total_timesteps=32768`` run in-process through
+   with gail_cartpole total_timesteps=16384`` run in-process through
    ``ex.run_cli`` (every CLI phase logs under a temporary directory and
    takes the default device, CUDA): the tuned config at its widths (64
    envs x 128 steps, PPO batch 128 = 64 minibatches x 5 epochs, lr 1e-3,
    ent 0.01, demo batch 1024, 4 disc updates, 10 scripted demos), cut from
-   500,000 timesteps to 4 rounds: s per round, B1 4 launches at [128, 64]
-   and B2 16 (asserted), the run directory's files, imit_stats/return_mean;
+   500,000 timesteps to 2 rounds: s per round, B1 2 launches at [128, 64]
+   and B2 8 (asserted), the run directory's files, imit_stats/return_mean;
    checkpoints/final's gen_policy and reward_test reloaded onto the card
    and held against the trainer on 4096 replay rows (within 1e-6).
 32. cli_airl_pendulum: ``train_adversarial airl with env_name=Pendulum-v1
-   total_timesteps=4096`` (2 rounds at the CLI defaults, 8 x 256: B1 2 at
-   [256, 8], B2 8), then ``train_rl with pendulum
+   total_timesteps=2048`` (1 round at the CLI defaults, 8 x 256: B1 1 at
+   [256, 8], B2 4), then ``train_rl with pendulum
    reward_type=RewardNet_unshaped reward_path=<its reward_test>
-   total_timesteps=4096`` (B1 2 at [256, 8]); the transferred reward on the
-   card against the CPU.
+   total_timesteps=2048`` (B1 1 at [256, 8]); the transferred reward on
+   the card against the CPU.
 33. cli_imitation_cartpole: ``train_imitation bc with bc_cartpole
    bc.n_epochs=2``, ``dagger with dagger_cartpole
    dagger.total_timesteps=2000``, ``sqil with sqil_cartpole
@@ -243,9 +250,9 @@ Phases, each timed and printed on its own line:
    replay 512 rows, 8 disc updates; 64 scripted episodes (12,800 rows)
    made through ``generate_trajectories_host``. Serialized only (its
    overlapped trainer cut to make room: phase 50 runs both modes on the
-   real env): a warm-up round, 2 timed rounds (B1 once at [64, 64] and B2
-   8 times a round, asserted), then 2 rounds under the generator's
-   ``PhaseTimer`` (host_collect, device_update, disc_update); s/round, the
+   real env): a warm-up round, 1 timed round (B1 once at [64, 64] and B2
+   8 times, asserted), then 1 round under the generator's ``PhaseTimer``
+   (host_collect, device_update, disc_update); s/round, the
    thread counts; parameters, buffers and every chunk field on cuda
    (asserted).
 38. sac_host_pendulum: SAC on 16 host Pendulum envs (train_freq 16, batch
@@ -264,7 +271,7 @@ Phases, each timed and printed on its own line:
 42. dp_gail: data-parallel training (``imitation_tpu_torch.parallel``).
    GAIL ``train_fused`` at gail_cartpole's tuned widths (64 CartPole envs x
    128 steps, PPO batch 128 = 64 minibatches x 5 epochs, demo batch 1024,
-   4 disc updates, 10 scripted demos), 2 of its 61 rounds: in one process
+   4 disc updates, 10 scripted demos), 1 of its 61 rounds: in one process
    (and once more from weights nudged by one ulp, for the float32 floor),
    then over 2 gloo ranks that share ``cuda:0``, started by the script
    itself with torchrun's variables (``chip_smoke.py --dp-rank <dir>
@@ -325,25 +332,36 @@ Phases, each timed and printed on its own line:
    episodes) and Pendulum (64) through ``data.serialize.save`` (the port's
    own HuggingFace writer) and ``load``: the three files, float64 rewards in
    the features, every array equal with its dtype; seconds and bytes.
-49. halfcheetah_env (after experts_seals): the port's seals/HalfCheetah
-   engine (``native/mjtree.cpp``, MuJoCo's mj_step for the compiled
-   half_cheetah model): its ``g++`` build, timed; MuJoCo's own 64 env steps
-   (the committed fixture imitation_tpu_torch/envs/assets/
-   half_cheetah_fixture.npz, written by tests/torch_mujoco_tools.py and
-   read here with numpy) within 1e-8; env steps per second at 64 envs on
-   the default threads and on one; the repo's SAC expert, deterministic on
-   the card, 16 envs from reset seed 12345, one 1000-step episode each:
-   the mean return within 2% of the JAX env's figure in the fixture.
+49. halfcheetah_env, hopper_env, walker2d_env, swimmer_env (after
+   experts_seals): the port's seals MuJoCo engine (``native/mjtree.cpp``,
+   MuJoCo's mj_step for the compiled model: Euler for HalfCheetah; RK4,
+   Hopper's frictionless capsule-capsule contacts and Swimmer's
+   inertia-box fluid forces for the others): its ``g++`` build, timed;
+   MuJoCo's own 64 env steps (the committed fixture
+   imitation_tpu_torch/envs/assets/<model>_fixture.npz, written by
+   tests/torch_mujoco_tools.py and read here with numpy) within 1e-8,
+   rewards (the healthy reward included) within 1e-6; env steps per
+   second at 64 envs on the default threads and on 1, 4 and 8; the repo's
+   expert, deterministic on the card, over the fixture's envs (16 for
+   HalfCheetah, 64 for the others) from reset seed 12345, one 1000-step
+   episode each: the mean return within 2% of the JAX env's figure in the
+   fixture.
 50. gail_seals_half_cheetah (after bc_dict_obs): phase 37's trainer on the
    real env, bench.py:106-180's main path: 64 port HalfCheetah envs, the 48
    expert episodes (48,000 rows), serialized and overlapped, each a
    warm-up round, 2 timed rounds (B1 once at [64, 64] and B2 8 times a
    round at demo [48000], replay [512], B = 8192, asserted) and 2 under the
    ``PhaseTimer``; chunk [64, 64] float32 on cuda, finite losses.
-51. cli_gail_seals_half_cheetah (with the CLI phases): ``train_adversarial
-   gail with gail_seals_half_cheetah total_timesteps=8192`` (2 rounds at
-   the tuned widths: B1 2 and B2 16, asserted), then ``eval_policy with
-   expert.policy_type=saved`` of the SAC expert on 64 port envs.
+51. cli_gail_seals_half_cheetah, cli_gail_seals_hopper,
+   cli_gail_seals_walker, cli_gail_seals_swimmer (with the CLI phases):
+   ``train_adversarial gail with <config> total_timesteps=...`` at the
+   tuned widths on the card (asserted: 64 envs; Hopper 64 steps, 8 PPO
+   minibatches x 20 epochs, demo batch 128, replay 4,096, 8 disc steps;
+   Walker2d 256 steps, 128 x 20, 512, 16,384, 16; Swimmer 64 steps, 64 x
+   5, 32, 4,096, 16), 2 rounds for HalfCheetah and Hopper (B1 2 and B2
+   16, asserted), 1 for Walker2d and Swimmer (B1 1 and B2 16), then
+   ``eval_policy with expert.policy_type=saved`` of the repo's expert on
+   64 port envs.
 
 The envs phase also steps ``TabularMDP`` (random_mdp(64, 4, horizon=32))
 at 1024 envs through ``VectorEnv`` under random actions for 64 steps:
@@ -382,7 +400,8 @@ airl_sac_fused, gail_sac, rlhf_pendulum, rlhf_active_pendulum,
 pebble_pendulum, mceirl_random_mdp, mceirl_large, density_pendulum,
 gail_pixel_cartpole, airl_pixel_cartpole, rlhf_pixel_cartpole,
 bc_nature_cnn, gail_seals_half_cheetah, cli_gail_cartpole,
-cli_gail_seals_half_cheetah, cli_airl_pendulum, cli_rl_pendulum,
+cli_gail_seals_half_cheetah, cli_gail_seals_hopper, cli_gail_seals_walker,
+cli_gail_seals_swimmer, cli_airl_pendulum, cli_rl_pendulum,
 cli_preference_pendulum, the examples that launch a kernel (ex_t03_gail,
 ex_t04_airl, ex_t05_rlhf, ex_t05a_rlhf_cnn, ex_t07_density,
 ex_t10_custom_env, ex_quickstart, ex_rlhf_example), gail_host_pendulum,
@@ -519,7 +538,7 @@ def check_kernels(torch, dev):
     # main path, HalfCheetah path, large, the CLI's AIRL round, the RLHF preset's,
     # the RLHF CLI's, density's and the pixel tutorial's PPO iterations
     timed = ((128, 1024), (64, 64), (2048, 4096), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64),
-             (128, 32), (64, 8), (40, 16))
+             (128, 32), (64, 8), (40, 16), (256, 64))
     kept, err_path = {}, None
     # The main paths' grids: [128, 1024] (gail, airl, airl_fused, rl,
     # gail_pixel_cartpole), [256, 8] (airl_cli, airl_pixel_cartpole), [64, 32]
@@ -529,12 +548,13 @@ def check_kernels(torch, dev):
     # [128, 8]) and [128, 32] (each rank of dp_gail's two and of tp_gail's
     # four), [64, 8] (the RLHF and density tutorials' and the RLHF
     # example's PPO; the GAIL and AIRL tutorials and the quickstart run
-    # [128, 8]) and [40, 16] (the custom-env tutorial's PPO); then the
-    # HalfCheetah path's, edge shapes and a large one.
+    # [128, 8]) and [40, 16] (the custom-env tutorial's PPO), [64, 64] (the
+    # seals HalfCheetah, Hopper and Swimmer GAIL) and [256, 64]
+    # (gail_seals_walker); then edge shapes and a large one.
     main = ((128, 1024), (256, 8), (64, 32), (128, 8), (64, 16), (32, 8), (128, 64), (128, 32), (64, 8),
-            (40, 16))
+            (40, 16), (64, 64), (256, 64))
     err_path = 0.0
-    for T, B in main + ((64, 64), (1, 5), (17, 37), (32, 8), (2048, 4096)):
+    for T, B in main + ((1, 5), (17, 37), (32, 8), (2048, 4096)):
         p = panels(T, B)
         err = check_gae(T, B, p)
         if (T, B) in timed:
@@ -589,7 +609,9 @@ def check_kernels(torch, dev):
         tutorials=dict(gae_rows[(64, 8)], shape="[64, 8] f32 x5 -> x2: the RLHF and density tutorials' and "
                                                 "the RLHF example's PPO iterations"),
         custom_env=dict(gae_rows[(40, 16)], shape="[40, 16] f32 x5 -> x2: the custom-env tutorial's PPO"),
-        halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2"),
+        halfcheetah=dict(gae_rows[(64, 64)], shape="[64, 64] f32 x5 -> x2: the GAIL rounds of seals/HalfCheetah, "
+                                                   "gail_seals_hopper and gail_seals_swimmer"),
+        walker=dict(gae_rows[(256, 64)], shape="[256, 64] f32 x5 -> x2: gail_seals_walker's round"),
         large=dict(gae_rows[(2048, 4096)], shape="[2048, 4096] f32 x5 -> x2"),
     ))
 
@@ -664,6 +686,17 @@ def check_kernels(torch, dev):
     # acts [., 6] f32, dones [.] f32.
     hc_kinds = (((18,), f32, 0), ((6,), f32, 0), ((18,), f32, 0), ((), f32, 0))
     hc_gail = check_fused("GAIL disc step over seals/HalfCheetah", 48000, 512, 8192, hc_kinds)
+    # The tuned GAIL configs of the other seals envs, each its expert
+    # episodes, its replay ring and its demo batch: Hopper obs [., 12] f32
+    # (48-byte rows: the uint4 path), acts [., 3]; Walker2d obs [., 18],
+    # acts [., 6]; Swimmer obs [., 10] (40-byte rows), acts [., 2].
+    seals_steps = {
+        "hopper": ("GAIL disc step at gail_seals_hopper", 48000, 4096, 128, 12, 3),
+        "walker": ("GAIL disc step at gail_seals_walker", 32000, 16384, 512, 18, 6),
+        "swimmer": ("GAIL disc step at gail_seals_swimmer", 48000, 4096, 32, 10, 2),
+    }
+    seals_fused = {k: check_fused(what, n, c, b, (((o,), f32, 0), ((a,), f32, 0), ((o,), f32, 0), ((), f32, 0)))
+                   for k, (what, n, c, b, o, a) in seals_steps.items()}
     # The GAIL and AIRL tutorials' and the quickstart's disc step: 24 scripted
     # CartPole episodes of 200 rows, a replay ring of 8 envs x 128 steps, demo
     # batch 256.
@@ -693,6 +726,9 @@ def check_kernels(torch, dev):
     gail_cli_row = time_b2(torch, "kernels", "GAIL disc step at gail_cartpole (4 fields)", *gail_cli, 1024)
     host_row = time_b2(torch, "kernels", "GAIL disc step over host Pendulum (4 fields)", *host_gail, 8192)
     hc_row = time_b2(torch, "kernels", "GAIL disc step over seals/HalfCheetah (4 fields)", *hc_gail, 8192)
+    seals_rows = {k: time_b2(torch, "kernels", f"{seals_steps[k][0]} (4 fields)", *f, seals_steps[k][3])
+                  for k, f in seals_fused.items()}
+    del seals_fused
     tutorial_row = time_b2(torch, "kernels", "GAIL disc step of the tutorials (4 fields)", *tutorial, 256)
     pixel_row = time_b2(torch, "kernels", "pixel GAIL disc step (obs/next_obs [., 16, 16, 1] f32)", *pixel, Bd)
     car_row = time_b2(torch, "kernels", "CarRacing-size uint8 rows [., 96, 96, 3], not on a main path",
@@ -718,6 +754,9 @@ def check_kernels(torch, dev):
                                                 "acts [., 1] f32, dones [.] f32"),
         gail_seals_half_cheetah=dict(hc_row, shape="demo [48000], replay [512], B=8192; obs/next_obs [., 18] "
                                                     "f32, acts [., 6] f32, dones [.] f32"),
+        **{f"gail_seals_{k}": dict(seals_rows[k], shape=f"demo [{n}], replay [{c}], B={b}; obs/next_obs [., {o}] "
+                                                       f"f32, acts [., {a}] f32, dones [.] f32")
+           for k, (_, n, c, b, o, a) in seals_steps.items()},
         tutorial_disc_step=dict(tutorial_row, shape="demo [4800], replay [1024], B=256, the GAIL fields: the GAIL "
                                                     "and AIRL tutorials' and the quickstart's disc step"),
         pixel_disc_step=dict(pixel_row, shape=f"demo [{N}], replay [{C}], B={Bd}; obs/next_obs "
@@ -1241,11 +1280,11 @@ def run_bc(torch, dev, env_name, phase, demo_kw, bc_kw, epochs, accumulate=None)
         check_learned(phase, before, demo_metrics(torch, acc))
 
 
-def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=False, **venv_kw):
+def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=False, bc_epochs=2, **venv_kw):
     """``SimpleDAggerTrainer.train`` on 16 device envs (with ``host``, 16
     host envs of the C++ engine), made with ``venv_kw``, with the scripted
-    expert, then ``save_trainer``, ``reconstruct_trainer`` and one more
-    round of the rebuilt trainer."""
+    expert and ``bc_epochs`` BC epochs a round, then ``save_trainer``,
+    ``reconstruct_trainer`` and one more round of the rebuilt trainer."""
     import tempfile
 
     import numpy as np
@@ -1298,9 +1337,9 @@ def run_dagger(torch, dev, env_name, phase, schedule, total_timesteps, host=Fals
             rounds.append((trainer.round_num, n, trainer.bc_trainer._demo_store.num_samples))
 
         trainer.train(total, rollout_round_min_episodes=3, rollout_round_min_timesteps=500,
-                      on_round_end=on_round_end)
+                      bc_train_kwargs=dict(n_epochs=bc_epochs), on_round_end=on_round_end)
         del trainer.extend_and_update
-        epochs = dagger.DEFAULT_N_EPOCHS * len(rounds)
+        epochs = bc_epochs * len(rounds)
         reads = trainer.bc_trainer.host_reads - reads0
         for i, (r, n, rows) in enumerate(rounds):
             secs = marks[i + 1] - marks[i]
@@ -1428,14 +1467,14 @@ def finite_metrics(torch, phase, metrics, keys):
     return host
 
 
-def run_sac(torch, dev, num_envs=16, masked_rounds=5, rounds=3):
+def run_sac(torch, dev, num_envs=16, masked_rounds=3, rounds=3):
     """``SAC.learn`` on device Pendulum-v1 at the expert-training settings
     (benchmarking/train_experts.py:200-212, the PEBBLE generator of
     benchmarking/run_rlhf.py:69): 16 envs, train_freq 16, 256 gradient steps
     of batch 256 a round, (256, 256) actor and critics, lr 3e-4;
-    ``learning_starts`` cut from 10,000 to 1,280, so ``masked_rounds``
-    rounds store 1,280 rows with masked updates before ``rounds`` rounds
-    learn (2,048 rows in all). The learning rounds run with the CUDA sync debug mode on and
+    ``learning_starts`` cut from 10,000 to 768, so ``masked_rounds``
+    rounds store 768 rows with masked updates before ``rounds`` rounds
+    learn (1,536 rows in all). The learning rounds run with the CUDA sync debug mode on and
     must make no host read (nothing is logged)."""
     from imitation_tpu_torch.envs import make_vec_env
     from imitation_tpu_torch.rl.sac import SAC, SACConfig
@@ -2179,11 +2218,11 @@ def kde_cpu_check(torch, phase, demos, venv, cfg):
             raise AssertionError(f"{phase}: the card's KDE reward disagrees with the CPU's ({kind})")
 
 
-def run_density(torch, dev, num_envs=16, timesteps=4_096):
+def run_density(torch, dev, num_envs=16, timesteps=2_048):
     """benchmarking/run_small_algos.py:79-105 at its widths: 16 envs, the
     scripted expert's episodes (``min_episodes=20``), STATE_ACTION_DENSITY,
     bandwidth 0.5, standardised, stationary; PPO n_steps 64, 8 minibatches x
-    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 4,096 timesteps."""
+    10 epochs, lr 3e-4, gamma 0.95, lambda 0.95. Cut to 2,048 timesteps."""
     import numpy as np
 
     from imitation_tpu_torch.algorithms import density
@@ -2658,7 +2697,7 @@ def run_bc_seals_half_cheetah(torch, dev, epochs=2):
     if not same:
         raise AssertionError(f"{phase}: the reloaded policy differs from the trained one")
     t0 = time.perf_counter()
-    ret = hc_returns(torch, dev, bc.policy.deterministic_fn())
+    ret = seals_returns(torch, dev, HC_ENV, bc.policy.deterministic_fn())
     log(phase, f"the BC policy on the port's {HC_ENV}, deterministic, 16 envs x 1000 steps from seed 12345 in "
                f"{time.perf_counter() - t0:.2f} s: return mean {ret.mean():.6g} (std {ret.std():.4g}, min "
                f"{ret.min():.6g}, max {ret.max():.6g})")
@@ -2752,8 +2791,8 @@ def finite_stats(phase, stats):
 
 
 def run_cli_gail_cartpole(torch, dev, root):
-    """``train_adversarial gail with gail_cartpole total_timesteps=32768``:
-    the tuned config at its widths, 4 rounds. Rounds timed by wrapping the
+    """``train_adversarial gail with gail_cartpole total_timesteps=16384``:
+    the tuned config at its widths, 2 rounds. Rounds timed by wrapping the
     trainer's ``train`` (the run is the CLI's own); B1 once per round at
     [128, 64], B2 once per disc step (16); the final checkpoints reloaded on
     the card against the trainer's own outputs on its replay rows."""
@@ -2762,7 +2801,7 @@ def run_cli_gail_cartpole(torch, dev, root):
     from imitation_tpu_torch.rewards import serialize as reward_serialize
 
     phase = "cli_gail_cartpole"
-    log(phase, "cut: total_timesteps 32,768 instead of gail_cartpole.json's 500,000 (4 rounds); widths as tuned")
+    log(phase, "cut: total_timesteps 16,384 instead of gail_cartpole.json's 500,000 (2 rounds); widths as tuned")
     trainers, ends = [], []
     train = common.AdversarialTrainer.train
 
@@ -2783,7 +2822,7 @@ def run_cli_gail_cartpole(torch, dev, root):
     try:
         zero_counts()
         result, run_dir = cli_run(torch, phase, "train_adversarial",
-                                  ["gail", "with", "gail_cartpole", "total_timesteps=32768"], root)
+                                  ["gail", "with", "gail_cartpole", "total_timesteps=16384"], root)
         launches = counts()
     finally:
         common.AdversarialTrainer.train = train
@@ -2796,7 +2835,7 @@ def run_cli_gail_cartpole(torch, dev, root):
     per_round = [b - a for a, b in zip(ends, ends[1:])]
     log(phase, f"{len(per_round)} rounds of 64 envs x 128 steps: {', '.join(f'{x:.3f}' for x in per_round)} "
                f"s per round; launches {launches}")
-    want = {"gae": 4, "assemble_rows": 16}
+    want = {"gae": 2, "assemble_rows": 8}
     if launches != want:  # B1 once per round, B2 once per disc step
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
     stats = result["imit_stats"]
@@ -2821,21 +2860,37 @@ def run_cli_gail_cartpole(torch, dev, root):
     return {phase: launches}
 
 
-def run_cli_gail_seals_half_cheetah(torch, dev, root):
-    """``train_adversarial gail with gail_seals_half_cheetah
-    total_timesteps=8192``: the tuned config at its widths (64 envs x 64
-    steps of the port's HalfCheetah, PPO 64 minibatches x 5 epochs, demo
-    batch 8192, replay 512, 8 disc updates, the 48 expert episodes), 2
-    rounds: s per round, B1 2 launches at [64, 64] and B2 16 (asserted),
-    imit_stats; then ``eval_policy`` of the SAC expert on the port's env
-    (``expert.policy_type=saved``, 64 envs, the CLI's 50 episodes):
-    return printed, 1000-step episodes and a finite return asserted."""
+# phase -> (tuned config, env, expert under EXPERTS, total_timesteps, the
+# widths (envs, n_steps, PPO minibatches, epochs, demo batch, replay, disc
+# updates, demo rows), the launches of its rounds)
+SEALS_CLI = {
+    "cli_gail_seals_half_cheetah": ("gail_seals_half_cheetah", "seals/HalfCheetah-v1", "seals_half_cheetah", 8192,
+                                    (64, 64, 64, 5, 8192, 512, 8, 48_000), {"gae": 2, "assemble_rows": 16}),
+    "cli_gail_seals_hopper": ("gail_seals_hopper", "seals/Hopper-v1", "seals_hopper", 8192,
+                              (64, 64, 8, 20, 128, 4096, 8, 48_000), {"gae": 2, "assemble_rows": 16}),
+    "cli_gail_seals_walker": ("gail_seals_walker", "seals/Walker2d-v1", "seals_walker2d", 16384,
+                              (64, 256, 128, 20, 512, 16384, 16, 32_000), {"gae": 1, "assemble_rows": 16}),
+    "cli_gail_seals_swimmer": ("gail_seals_swimmer", "seals/Swimmer-v1", "seals_swimmer", 4096,
+                               (64, 64, 64, 5, 32, 4096, 16, 48_000), {"gae": 1, "assemble_rows": 16}),
+}
+
+
+def run_cli_gail_seals(torch, dev, root, phase):
+    """``train_adversarial gail with <config> total_timesteps=...``: a
+    seals env's tuned config at its widths (``SEALS_CLI``: 64 envs of the
+    port's engine, its PPO minibatches and epochs, demo batch, replay and
+    disc updates, the repo's expert episodes), 1 or 2 rounds: s per round,
+    the widths on the card and B1's and B2's launches (asserted),
+    imit_stats; then ``eval_policy`` of the repo's expert on the port's env
+    (``expert.policy_type=saved``, 64 envs, the CLI's 50 episodes): return
+    printed, 1000-step episodes and a finite return asserted."""
     from imitation_tpu_torch.algorithms.adversarial import common
     from imitation_tpu_torch.envs.mujoco_native import MujocoLockstepVectorEnv
 
-    phase = "cli_gail_seals_half_cheetah"
-    log(phase, "cut: total_timesteps 8,192 instead of gail_seals_half_cheetah.json's 10,000,000 (2 rounds); "
-               "widths as tuned")
+    config, env_id, expert_dir, timesteps, widths, want_launches = SEALS_CLI[phase]
+    rounds = want_launches["gae"]
+    log(phase, f"cut: total_timesteps {timesteps:,} instead of {config}.json's 10,000,000 ({rounds} "
+               f"round{'s' if rounds > 1 else ''}); widths as tuned")
     trainers, ends = [], []
     train = common.AdversarialTrainer.train
 
@@ -2856,33 +2911,34 @@ def run_cli_gail_seals_half_cheetah(torch, dev, root):
     try:
         zero_counts()
         result, _ = cli_run(torch, phase, "train_adversarial",
-                            ["gail", "with", "gail_seals_half_cheetah", "total_timesteps=8192"], root)
+                            ["gail", "with", config, f"total_timesteps={timesteps}"], root)
         launches = counts()
     finally:
         common.AdversarialTrainer.train = train
     (trainer,) = trainers
     ppo = trainer.gen_algo.config
-    got = (type(trainer.venv).__name__, trainer.venv.num_envs, ppo.n_steps, ppo.n_minibatches, ppo.n_epochs,
-           trainer.demo_batch_size, trainer.n_disc_updates_per_round, trainer._demo_store.num_samples,
-           trainer.device.type)
-    want = (MujocoLockstepVectorEnv.__name__, 64, 64, 64, 5, 8192, 8, 48_000, torch.device(dev).type)
+    got = (type(trainer.venv).__name__, trainer.venv.env_id, trainer.venv.num_envs, ppo.n_steps, ppo.n_minibatches,
+           ppo.n_epochs, trainer.demo_batch_size, trainer._gen_replay_buffer.capacity,
+           trainer.n_disc_updates_per_round, trainer._demo_store.num_samples, trainer.device.type)
+    want = (MujocoLockstepVectorEnv.__name__, env_id, *widths, torch.device(dev).type)
     if got != want:
-        raise AssertionError(f"{phase}: not gail_seals_half_cheetah's widths on the card: {got}")
+        raise AssertionError(f"{phase}: not {config}'s widths on the card: {got}, expected {want}")
     per_round = [b - a for a, b in zip(ends, ends[1:])]
-    log(phase, f"{len(per_round)} rounds of 64 envs x 64 steps: {', '.join(f'{x:.3f}' for x in per_round)} "
-               f"s per round; launches {launches}")
-    if launches != {"gae": 2, "assemble_rows": 16}:
-        raise AssertionError(f"{phase}: launches {launches}, expected B1 2 and B2 16")
+    log(phase, f"{len(per_round)} round{'s' if len(per_round) > 1 else ''} of {widths[0]} envs x {widths[1]} "
+               f"steps ({widths[2]} minibatches x {widths[3]} epochs, {widths[6]} disc steps at B = {widths[4]}): "
+               f"{', '.join(f'{x:.3f}' for x in per_round)} s per round; launches {launches}")
+    if launches != want_launches:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want_launches}")
     stats = result["imit_stats"]
     finite_stats(phase, stats)
     log(phase, f"imit_stats ({stats_line(stats)})")
     zero_counts()
-    stats, _ = cli_run(torch, "cli_eval_half_cheetah", "eval_policy", [
-        "with", "expert.policy_type=saved",
-        f"expert.loader_kwargs.path={os.path.join(EXPERTS, 'seals_half_cheetah', 'policy')}",
-        f"env_name={HC_ENV}", "num_envs=64"], root)
+    eval_phase = phase.replace("cli_gail_seals", "cli_eval")
+    stats, _ = cli_run(torch, eval_phase, "eval_policy", [
+        "with", "expert.policy_type=saved", f"expert.loader_kwargs.path={os.path.join(EXPERTS, expert_dir, 'policy')}",
+        f"env_name={env_id}", "num_envs=64"], root)
     finite_stats(phase, stats)
-    log(phase, f"eval_policy of the SAC expert (sampled actions): {stats_line(stats)}")
+    log(phase, f"eval_policy of the repo's {expert_dir} expert (sampled actions): {stats_line(stats)}")
     if stats["len_mean"] != 1000 or stats["n_traj"] < 50 or any(counts().values()):
         raise AssertionError(f"{phase}: eval_policy {stats}, launches {counts()}")
     return {phase: launches}
@@ -2890,36 +2946,36 @@ def run_cli_gail_seals_half_cheetah(torch, dev, root):
 
 def run_cli_airl_pendulum(torch, dev, root):
     """``train_adversarial airl with env_name=Pendulum-v1
-    total_timesteps=4096`` (2 rounds at the CLI defaults, 8 envs x 256
+    total_timesteps=2048`` (1 round at the CLI defaults, 8 envs x 256
     steps), then ``train_rl`` on its unshaped ``reward_test`` (the reward
-    transfer of tests/scripts/test_scripts.py): B1 at [256, 8] once per
-    round and per PPO iteration."""
+    transfer of tests/scripts/test_scripts.py) for one PPO iteration: B1
+    at [256, 8] once per round and per PPO iteration."""
     import numpy as np
 
     from imitation_tpu_torch.rewards import serialize as reward_serialize
 
     phase = "cli_airl_pendulum"
-    log(phase, "cut: total_timesteps 4,096 instead of the CLI default 100,000 (2 rounds), and 4,096 for "
-               "train_rl (2 PPO iterations)")
+    log(phase, "cut: total_timesteps 2,048 instead of the CLI default 100,000 (1 round), and 2,048 for "
+               "train_rl (1 PPO iteration)")
     zero_counts()
     result, run_dir = cli_run(torch, phase, "train_adversarial",
-                              ["airl", "with", "env_name=Pendulum-v1", "total_timesteps=4096"], root)
+                              ["airl", "with", "env_name=Pendulum-v1", "total_timesteps=2048"], root)
     airl = counts()
     finite_stats(phase, result["imit_stats"])
     log(phase, f"airl: launches {airl}; imit_stats {stats_line(result['imit_stats'])}")
-    if airl != {"gae": 2, "assemble_rows": 8}:
-        raise AssertionError(f"{phase}: AIRL launches {airl}, expected 2 GAE and 8 B2")
+    if airl != {"gae": 1, "assemble_rows": 4}:
+        raise AssertionError(f"{phase}: AIRL launches {airl}, expected 1 GAE and 4 B2")
 
     reward_path = os.path.join(run_dir, "checkpoints", "final", "reward_test")
     zero_counts()
     result, rl_dir = cli_run(torch, phase, "train_rl", [
         "with", "pendulum", "reward_type=RewardNet_unshaped", f"reward_path={reward_path}",
-        "total_timesteps=4096"], root)
+        "total_timesteps=2048"], root)
     rl = counts()
     finite_stats(phase, result)
     log(phase, f"train_rl on the AIRL reward: launches {rl}; eval {stats_line(result)}")
-    if rl != {"gae": 2, "assemble_rows": 0}:
-        raise AssertionError(f"{phase}: train_rl launches {rl}, expected 2 GAE")
+    if rl != {"gae": 1, "assemble_rows": 0}:
+        raise AssertionError(f"{phase}: train_rl launches {rl}, expected 1 GAE")
     rng = np.random.default_rng(0)
     obs, next_obs = (rng.normal(size=(4096, 3)).astype(np.float32) for _ in range(2))
     acts = rng.uniform(-2, 2, (4096, 1)).astype(np.float32)
@@ -3519,7 +3575,7 @@ def host_gail_modes(torch, dev, phase, demos, make_venv, modes, rounds=2):
     return launches, results
 
 
-def run_gail_host_pendulum(torch, dev, rounds=2):
+def run_gail_host_pendulum(torch, dev, rounds=1):
     """GAIL at bench.py's main-path learner configuration over 64 host
     Pendulum-v1 envs (200-step horizon), serialized only (the HalfCheetah
     phase runs both modes on the real env): ``host_gail_modes``, on 64
@@ -3548,96 +3604,120 @@ def run_gail_host_pendulum(torch, dev, rounds=2):
 
 
 HC_ENV = "seals/HalfCheetah-v1"
-HC_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "imitation_tpu_torch", "envs", "assets",
-                          "half_cheetah_fixture.npz")
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "imitation_tpu_torch", "envs", "assets")
+# phase -> (env, model file under ASSETS, the repo's expert under EXPERTS)
+SEALS_ENV_PHASES = {
+    "halfcheetah_env": (HC_ENV, "half_cheetah", "seals_half_cheetah"),
+    "hopper_env": ("seals/Hopper-v1", "hopper", "seals_hopper"),
+    "walker2d_env": ("seals/Walker2d-v1", "walker2d_v5", "seals_walker2d"),
+    "swimmer_env": ("seals/Swimmer-v1", "swimmer", "seals_swimmer"),
+}
 
 
-def hc_returns(torch, dev, act, num_envs=16, seed=12345):
+def seals_returns(torch, dev, env_id, act, num_envs=16, seed=12345):
     """Returns of one 1000-step episode in each of ``num_envs`` port
-    HalfCheetah envs from reset ``seed``, under ``act`` (a rollout closure
-    on ``dev``) fed float32 observations on the card."""
+    ``env_id`` envs from reset ``seed``, under ``act`` (a rollout closure
+    on ``dev``) fed float32 observations on the card. 256 envs or more
+    step on every core (nothing else runs beside them), fewer on the env's
+    default threads."""
     import numpy as np
 
     from imitation_tpu_torch.envs.mujoco_native import MujocoLockstepVectorEnv
 
-    venv = MujocoLockstepVectorEnv(HC_ENV, num_envs=num_envs, device=dev)
+    threads = (os.cpu_count() or 1) if num_envs >= 256 else None
+    venv = MujocoLockstepVectorEnv(env_id, num_envs=num_envs, num_threads=threads, device=dev)
     try:
         obs, ret = venv.reset(seed=seed), np.zeros(num_envs)
         for _ in range(venv.max_episode_steps):
             with torch.inference_mode():
                 acts = act(torch.from_numpy(obs.astype(np.float32)).to(dev))[0]
             if acts.device != dev:
-                raise AssertionError(f"hc_returns: actions on {acts.device}, expected {dev}")
+                raise AssertionError(f"seals_returns: actions on {acts.device}, expected {dev}")
             out = venv.step(acts.cpu().numpy())
             ret += out["reward"]
             obs = out["obs"]
         if not out["truncated"].all():
-            raise AssertionError("hc_returns: the episodes did not end at the horizon")
+            raise AssertionError("seals_returns: the episodes did not end at the horizon")
         return ret
     finally:
         venv.close()
 
 
-def run_halfcheetah_env(torch, dev, n=64, steps=500):
-    """The port's seals/HalfCheetah engine (``native/mjtree.cpp``): its
-    ``g++`` build at first use, timed; MuJoCo's own 64 env steps of the
-    committed fixture (states in contact, actions beyond the control range)
-    stepped at once and held within 1e-8 of their scale (rewards within
-    1e-6); env steps per second at ``n`` envs under random actions, on the
-    env's default threads and on one; and the repo's SAC expert,
-    deterministic on the card, over 16 envs from reset seed 12345 (one
-    1000-step episode each): the mean return within 2% of the JAX env's
-    figure in the fixture, every return finite. Reads the fixture with
-    numpy only: MuJoCo is not on this machine."""
+def run_seals_env(torch, dev, phase, n=64, steps=300, threads=(None, 1, 4, 8)):
+    """One seals env of the port's engine (``native/mjtree.cpp``; Euler for
+    HalfCheetah, RK4 for Hopper, Walker2d and Swimmer): its ``g++`` build at
+    first use, timed; MuJoCo's own 64 env steps of the committed fixture
+    (``<model>_fixture.npz``: states in contact, Hopper's capsule-capsule
+    ones among them, actions beyond the control range) stepped at once and
+    held within 1e-8 of their scale (rewards, the healthy reward included,
+    within 1e-6); env steps per second at ``n`` envs under random actions,
+    on the env's default threads and on 1, 4 and 8; and the repo's expert,
+    deterministic on the card, over the fixture's envs (16 or 64) from reset
+    seed 12345 (one 1000-step episode each): the mean return within 2% of
+    the JAX env's figure in the fixture, every return finite. Reads the
+    fixture with numpy only: MuJoCo is not on this machine."""
     import numpy as np
 
     from imitation_tpu_torch.envs.mujoco_native import MujocoEngine, MujocoLockstepVectorEnv, load_model
     from imitation_tpu_torch.native import build
     from imitation_tpu_torch.policies import serialize
 
-    phase = "halfcheetah_env"
+    env_id, name, expert_dir = SEALS_ENV_PHASES[phase]
     t0 = time.perf_counter()
     build.load_mjtree()
     build_s = time.perf_counter() - t0
     log(phase, f"g++ build + load {build_s:.2f} s -> {build.library_path(build.MJTREE_SOURCE).name}")
-    fx = np.load(HC_FIXTURE)
-    engine = MujocoEngine(load_model("half_cheetah"))
+    model = load_model(name)
+    env = model["env"]
+    fs = env["frame_skip"]
+    dt = model["opt"]["timestep"] * fs
+    fx = np.load(os.path.join(ASSETS, f"{name}_fixture.npz"))
+    engine = MujocoEngine(model)
     q, v = fx["qpos"].copy(), fx["qvel"].copy()
-    engine.step(q, v, fx["act"], 5)
+    engine.step(q, v, fx["act"], fs)
     engine.close()
     errs = {k: float(np.abs(got - fx[k]).max() / max(1.0, np.abs(fx[k]).max()))
             for k, got in (("next_qpos", q), ("next_qvel", v))}
-    reward = (q[:, 0] - fx["qpos"][:, 0]) / 0.05 - 0.1 * np.sum(np.square(fx["act"].astype(np.float64)), 1)
+    reward = (env["forward_reward_weight"] * (q[:, 0] - fx["qpos"][:, 0]) / dt
+              - env["ctrl_cost_weight"] * np.sum(np.square(fx["act"].astype(np.float64)), 1) + env["healthy_reward"])
     errs["reward"] = float(np.abs(reward - fx["reward"]).max() / max(1.0, np.abs(fx["reward"]).max()))
-    log(phase, f"MuJoCo's fixture, {len(q)} env steps ({int((fx['ncon'] > 0).sum())} starting in contact, up to "
-               f"{int(fx['ncon'].max())} contacts): max error over scale " + ", ".join(
-                   f"{k} {e:.3g}" for k, e in errs.items()) + " (limits 1e-8, 1e-8, 1e-6)")
+    integrator = ("Euler", "RK4")[model["opt"]["integrator"]]
+    log(phase, f"MuJoCo's fixture, {len(q)} env steps of {fs} {integrator} substeps "
+               f"({int((fx['ncon'] > 0).sum())} starting in contact, up to {int(fx['ncon'].max())} contacts): "
+               "max error over scale " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+               + " (limits 1e-8, 1e-8, 1e-6)")
     if max(errs["next_qpos"], errs["next_qvel"]) > 1e-8 or errs["reward"] > 1e-6:
         raise AssertionError(f"{phase}: the engine disagrees with MuJoCo's fixture: {errs}")
     rng = np.random.default_rng(0)
     rates = {}
-    for threads in (None, 1):
-        venv = MujocoLockstepVectorEnv(HC_ENV, num_envs=n, num_threads=threads, device=dev)
+    for th in threads:
+        venv = MujocoLockstepVectorEnv(env_id, num_envs=n, num_threads=th, device=dev)
+        if th is not None and venv.num_threads in rates:
+            venv.close()
+            continue
         venv.reset(seed=0)
-        acts = rng.uniform(-1, 1, (steps, n, 6)).astype(np.float32)
+        acts = rng.uniform(-1, 1, (steps, n) + venv.action_space.shape).astype(np.float32)
         t0 = time.perf_counter()
         for a in acts:
             venv.step(a)
         secs = time.perf_counter() - t0
         rates[venv.num_threads] = n * steps / secs
-        log(phase, f"{HC_ENV} x{n}: {steps} steps in {secs:.3f} s = {n * steps / secs:.0f} env steps/s "
-                   f"({1e3 * secs / steps:.4f} ms a step call of 5 substeps; {thread_counts(torch, venv)})")
+        log(phase, f"{env_id} x{n}: {steps} steps in {secs:.3f} s = {n * steps / secs:.0f} env steps/s "
+                   f"({1e3 * secs / steps:.4f} ms a step call of {fs} substeps; "
+                   f"{'default' if th is None else 'asked'} {thread_counts(torch, venv)})")
         venv.close()
-    expert = serialize.load_policy_from_path(os.path.join(EXPERTS, "seals_half_cheetah", "policy"), device=dev)
+    expert = serialize.load_policy_from_path(os.path.join(EXPERTS, expert_dir, "policy"), device=dev)
     if not all(p.device == dev for p in expert.parameters()):
         raise AssertionError(f"{phase}: the expert is off the card")
+    want_all = fx["expert_returns"]
     t0 = time.perf_counter()
-    ret = hc_returns(torch, dev, expert.deterministic_fn())
+    ret = seals_returns(torch, dev, env_id, expert.deterministic_fn(), num_envs=len(want_all))
     secs = time.perf_counter() - t0
-    want = float(fx["expert_returns"].mean())
-    log(phase, f"SAC expert, deterministic on the card, 16 envs x 1000 steps from seed 12345 in {secs:.2f} s: "
-               f"return mean {ret.mean():.6g} (std {ret.std():.4g}, min {ret.min():.6g}, max {ret.max():.6g}); "
-               f"the JAX env's {want:.6g} (fixture): {100 * (ret.mean() / want - 1):+.3f}% (limit 2%)")
+    want = float(want_all.mean())
+    log(phase, f"{type(expert).__name__} expert, deterministic on the card, {len(want_all)} envs x 1000 steps "
+               f"from seed 12345 ({'every core' if len(want_all) >= 256 else 'default threads'}) in {secs:.2f} s: return mean {ret.mean():.6g} (std {ret.std():.4g}, "
+               f"min {ret.min():.6g}, max {ret.max():.6g}); the JAX env's {want:.6g} (fixture): "
+               f"{100 * (ret.mean() / want - 1):+.3f}% (limit 2%)")
     if not np.isfinite(ret).all() or abs(ret.mean() - want) > 0.02 * abs(want):
         raise AssertionError(f"{phase}: expert return {ret.mean()} against the JAX env's {want}")
     return dict(build_s=build_s, rates=rates, fixture=errs, expert=float(ret.mean()))
@@ -3779,7 +3859,7 @@ def rlhf_host_pendulum(dev):
 # -- dp: data-parallel ranks ----------------------------------------------------------
 
 DP_WORLD = 2
-DP_ROUNDS = 2
+DP_ROUNDS = 1
 DP_LAUNCH_TIMEOUT_S = 300  # the launch of the ranks, start to join
 DP_GROUP_TIMEOUT = datetime.timedelta(seconds=120)  # any one collective
 DP_NUDGE = 1.2e-7  # about one float32 ulp of the weights: the floor's nudge
@@ -4335,7 +4415,7 @@ def main() -> int:
     for phase, fn in (
         ("sac_pendulum", lambda: run_sac(torch, dev)),
         ("sqil_cartpole", lambda: run_sqil(
-            torch, dev, "CartPole-v1", "sqil_cartpole", 10_000, 10,
+            torch, dev, "CartPole-v1", "sqil_cartpole", 5_000, 10,
             dict(dqn_config=DQNConfig(learning_starts=500, train_freq=4, batch_size=64, gradient_steps=4,
                                       learning_rate=1e-4, target_update_interval=2000,
                                       exploration_fraction=0.3, exploration_final_eps=0.05)))),
@@ -4405,13 +4485,15 @@ def main() -> int:
 
     # The repo's seals experts and demos read by the port's own readers, BC
     # on them and BC on dict observations: neither kernel is on these paths.
-    # The port's seals/HalfCheetah engine against MuJoCo's fixture and the
-    # JAX env's expert figure (neither kernel), then GAIL over 64 of its envs
+    # The port's seals/HalfCheetah, Hopper, Walker2d and Swimmer engines
+    # against MuJoCo's fixtures and the JAX env's expert figures (neither
+    # kernel), then GAIL over 64 HalfCheetah envs
     # at bench.py's main path (B1 at [64, 64] once a round, B2 8 times a
     # round at 2 x 8192 rows), serialized and overlapped.
     t_seals = time.perf_counter()
+    env_phases = tuple((phase, lambda phase=phase: run_seals_env(torch, dev, phase)) for phase in SEALS_ENV_PHASES)
     for phase, fn in (("experts_seals", lambda: run_experts_seals(torch, dev)),
-                      ("halfcheetah_env", lambda: run_halfcheetah_env(torch, dev)),
+                      *env_phases,
                       ("bc_seals_half_cheetah", lambda: run_bc_seals_half_cheetah(torch, dev)),
                       ("bc_dict_obs", lambda: run_bc_dict_obs(torch, dev))):
         t0 = time.perf_counter()
@@ -4432,7 +4514,8 @@ def main() -> int:
     t_cli = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="itt_cli_") as root:
         for phase, fn in (("cli_gail_cartpole", lambda: run_cli_gail_cartpole(torch, dev, root)),
-                          ("cli_gail_seals_half_cheetah", lambda: run_cli_gail_seals_half_cheetah(torch, dev, root)),
+                          *((phase, lambda phase=phase: run_cli_gail_seals(torch, dev, root, phase))
+                            for phase in SEALS_CLI),
                           ("cli_airl_pendulum", lambda: run_cli_airl_pendulum(torch, dev, root)),
                           ("cli_imitation_cartpole", lambda: run_cli_imitation_cartpole(torch, dev, root)),
                           ("cli_preference_pendulum", lambda: run_cli_preference_pendulum(torch, dev, root)),

@@ -3,9 +3,10 @@
 Port of ``imitation_tpu/envs/mujoco_native.py``. The JAX package steps
 MuJoCo's C core through ``mujoco.rollout``; the port has neither
 ``mujoco`` nor ``gymnasium``, so the physics is ``native/mjtree.cpp``, a
-float64 engine that computes what MuJoCo's ``mj_step`` computes (Euler
-integrator, pyramidal contacts, joint limits) for a tree of hinge and
-slide joints with sphere and capsule geoms against planes. It reads
+float64 engine that computes what MuJoCo's ``mj_step`` computes (the Euler
+and RK4 integrators, frictionless and pyramidal contacts, joint limits,
+the inertia-box fluid model) for a tree of hinge and slide joints with
+sphere and capsule geoms against planes and capsules against capsules. It reads
 MuJoCo's *compiled* model from ``envs/assets/<name>.json`` (written from
 ``mujoco.MjModel`` by ``tests/torch_mujoco_tools.py``), so MuJoCo's
 compiler is never needed.
@@ -14,7 +15,8 @@ compiler is never needed.
 ``step`` crosses into C once for all B envs and ``frame_skip`` substeps;
 observations and rewards are computed in numpy from the state, with the
 seals semantics of the JAX env (fixed horizon, no early termination,
-positions in the observation, lockstep auto-reset). Its outputs equal the
+positions in the observation, qvel clipped where the model file says so,
+the healthy reward on every step, lockstep auto-reset). Its outputs equal the
 JAX env's in dtype: float64 observations, float32 rewards and returns.
 The learners' collector (``data/rollout.py`` ``HostCollector``) casts the
 observations to float32, as JAX does when it converts them.
@@ -22,7 +24,7 @@ observations to float32, as JAX does when it converts them.
 ``device`` is where the learners and the collected chunks live (the env
 itself steps on the host): CUDA unless the caller passes ``device="cpu"``.
 
-Only seals/HalfCheetah runs here; the other seals MuJoCo envs raise
+seals/HalfCheetah, Hopper, Walker2d and Swimmer run here; seals/Ant raises
 ``NotImplementedError`` (ROADMAP.md, queue A).
 """
 
@@ -45,19 +47,16 @@ ASSETS = Path(__file__).resolve().parent / "assets"
 _SPECS: Dict[str, Optional[str]] = {
     "seals/HalfCheetah-v0": "half_cheetah",
     "seals/HalfCheetah-v1": "half_cheetah",
-    "seals/Hopper-v0": None,
-    "seals/Hopper-v1": None,
-    "seals/Walker2d-v0": None,
-    "seals/Walker2d-v1": None,
-    "seals/Swimmer-v0": None,
-    "seals/Swimmer-v1": None,
+    "seals/Hopper-v0": "hopper",
+    "seals/Hopper-v1": "hopper",
+    "seals/Walker2d-v0": "walker2d_v5",
+    "seals/Walker2d-v1": "walker2d_v5",
+    "seals/Swimmer-v0": "swimmer",
+    "seals/Swimmer-v1": "swimmer",
     "seals/Ant-v0": None,
     "seals/Ant-v1": None,
 }
 _QUEUED = {
-    "Hopper": "RK4 at 0.002 s, frame_skip 4, qvel clipped in the observation, healthy reward",
-    "Walker2d": "RK4 at 0.002 s, frame_skip 4, qvel clipped in the observation, healthy reward",
-    "Swimmer": "RK4 and the fluid model's viscosity and density",
     "Ant": "a free joint in 3-D and cfrc_ext in the observation and reward",
 }
 
@@ -79,7 +78,8 @@ def collision_pairs(model: dict) -> np.ndarray:
     """The geom pairs MuJoCo's collision stage tests, in its order: pairs
     of distinct weld bodies that pass the contype/conaffinity test and the
     parent filter (a body and its parent do not collide unless one is the
-    world), by body pair, then geom; the plane first in each pair. [P, 2]."""
+    world), by body pair, then geom; in each pair the geom of the lower
+    type first (the plane), else the lower index. [P, 2]."""
     m = model["model"]
     body, typ = m["geom_bodyid"], m["geom_type"]
     ct, ca = m["geom_contype"], m["geom_conaffinity"]
@@ -93,12 +93,14 @@ def collision_pairs(model: dict) -> np.ndarray:
             if w1 and w2 and (w1 == weld[parent[w2]] or w2 == weld[parent[w1]]):
                 continue
             a, b = sorted((g1, g2), key=lambda g: typ[g])
-            if typ[a] != _PLANE or typ[b] not in (_SPHERE, _CAPSULE):
+            if (typ[a], typ[b]) not in ((_PLANE, _SPHERE), (_PLANE, _CAPSULE), (_CAPSULE, _CAPSULE)):
                 raise NotImplementedError(
                     f"{model['name']}: geoms {a} and {b} (types {typ[a]}, {typ[b]}) collide; the engine "
-                    "collides only spheres and capsules with planes")
-            if max(m["geom_condim"][a], m["geom_condim"][b]) != 3:
-                raise NotImplementedError(f"{model['name']}: geoms {a} and {b} need condim 3")
+                    "collides only spheres and capsules with planes, and capsules with capsules")
+            condim = max(m["geom_condim"][a], m["geom_condim"][b])
+            if condim not in (1, 3):
+                raise NotImplementedError(f"{model['name']}: geoms {a} and {b} need condim {condim}; the "
+                                          "engine has condim 1 and 3")
             pairs.append((tuple(sorted((w1, w2))), (a, b)))
     pairs.sort(key=lambda p: p[0])
     return np.asarray([g for _, g in pairs], np.int32).reshape(-1, 2)
@@ -109,8 +111,14 @@ def pack_model(model: dict) -> Tuple[np.ndarray, np.ndarray]:
     ``parse_model``, in that order): int32 sizes, tree, types and the
     collision pairs; float64 options and the model's values."""
     s, m, opt = model["sizes"], model["model"], model["opt"]
-    if opt["integrator"] != 0 or opt["cone"] != 0:
-        raise NotImplementedError(f"{model['name']}: the engine has the Euler integrator and pyramidal cones")
+    if opt["integrator"] not in (0, 1) or opt["cone"] != 0:
+        raise NotImplementedError(
+            f"{model['name']}: the engine has the Euler and RK4 integrators and pyramidal cones")
+    if any(t not in (2, 3) for t in m["jnt_type"]):
+        raise NotImplementedError(f"{model['name']}: the engine has hinge and slide joints only")
+    if np.any(np.asarray(m["geom_fluid"]) != 0):
+        raise NotImplementedError(f"{model['name']}: the engine has the inertia-box fluid model only, "
+                                  "not the ellipsoid one (geom_fluid)")
     motors = all(m[k][u] == 0 for k in ("actuator_trntype", "actuator_dyntype", "actuator_gaintype",
                                          "actuator_biastype") for u in range(s["nu"]))
     if not motors or any(g[0] != 1.0 for g in m["actuator_gainprm"]) or any(
@@ -118,12 +126,12 @@ def pack_model(model: dict) -> Tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError(f"{model['name']}: the engine has motors on joints only")
     pairs = collision_pairs(model)
     act_dof = [m["jnt_dofadr"][j] for j, _ in m["actuator_trnid"]]
-    ints = [s["nq"], s["nv"], s["nu"], s["nbody"], s["njnt"], s["ngeom"], len(pairs)]
+    ints = [s["nq"], s["nv"], s["nu"], s["nbody"], s["njnt"], s["ngeom"], len(pairs), opt["integrator"]]
     for k in ("body_parentid", "body_rootid", "body_jntadr", "body_jntnum", "jnt_type", "jnt_qposadr",
               "jnt_dofadr", "jnt_limited", "geom_type", "geom_bodyid", "geom_condim"):
         ints += m[k]
     ints += act_dof + m["actuator_ctrllimited"] + pairs.ravel().tolist()
-    doubles = [opt["timestep"], *opt["gravity"], opt["impratio"]]
+    doubles = [opt["timestep"], *opt["gravity"], opt["impratio"], *opt["wind"], opt["density"], opt["viscosity"]]
     for k in ("body_pos", "body_quat", "body_mass", "body_subtreemass", "body_ipos", "body_iquat",
               "body_inertia", "body_invweight0", "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range",
               "jnt_solref", "jnt_solimp", "jnt_margin", "qpos0", "qpos_spring", "dof_armature",
@@ -262,6 +270,8 @@ class MujocoLockstepVectorEnv:
         self._ctrl_w = float(env["ctrl_cost_weight"])
         self._noise = float(env["reset_noise_scale"])
         self._qvel_noise_normal = env["qvel_noise"] == "normal"
+        self._qvel_clip = env["qvel_clip"]
+        self._healthy = float(env["healthy_reward"])
         self._init_qpos = np.asarray(env["init_qpos"], np.float64)
         self._init_qvel = np.asarray(env["init_qvel"], np.float64)
         self.observation_space = _space(env["observation_space"])
@@ -270,7 +280,9 @@ class MujocoLockstepVectorEnv:
         if num_threads is None:
             # 16 envs or more a thread, at most 4 threads and half the cores: each step
             # call starts its threads, and on an 8-core H100 host 64 envs stepped
-            # fastest on 4 (0.76 ms a call against 1.08 on 1 and 1.58 on 8)
+            # fastest on 4, HalfCheetah's Euler steps (0.76 ms a call against 1.08 on
+            # 1 and 1.58 on 8) and the RK4 envs' too (Hopper 1.20-2.34 ms against
+            # 2.23-3.22 on 1 and 2.08-4.55 on 8)
             num_threads = max(1, min(4, (os.cpu_count() or 2) // 2, num_envs // 16))
         self.num_threads = num_threads
         self.engine = MujocoEngine(model, num_threads)
@@ -282,7 +294,10 @@ class MujocoLockstepVectorEnv:
         self._rng = np.random.default_rng(seed if seed is not None else 0)
 
     def _obs(self) -> np.ndarray:
-        return np.concatenate([self._qpos, self._qvel], axis=1)
+        qvel = self._qvel
+        if self._qvel_clip is not None:
+            qvel = np.clip(qvel, -self._qvel_clip, self._qvel_clip)
+        return np.concatenate([self._qpos, qvel], axis=1)
 
     def _reset_states(self) -> None:
         B = self.num_envs
@@ -304,9 +319,11 @@ class MujocoLockstepVectorEnv:
         acts = np.asarray(actions, np.float64).reshape(self.num_envs, -1)
         x_before = self._qpos[:, 0].copy()
         self.engine.step(self._qpos, self._qvel, acts, self._frame_skip)
-        # forward velocity minus the control cost of the unclamped actions
+        # forward velocity minus the control cost of the unclamped actions, plus the
+        # healthy reward on every step (seals' unconditional one)
         reward = (self._fwd_w * (self._qpos[:, 0] - x_before) / self._dt
-                  - self._ctrl_w * np.sum(np.square(acts), axis=1))
+                  - self._ctrl_w * np.sum(np.square(acts), axis=1)
+                  + self._healthy)
         self._t += 1
         self._ep_ret += reward
         obs = self._obs()

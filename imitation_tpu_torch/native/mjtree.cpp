@@ -2,17 +2,19 @@
 // (the seals MuJoCo envs' host path).
 //
 // It steps B copies of one compiled model through ``nstep`` calls of what
-// MuJoCo's ``mj_step`` does with the Euler integrator, in float64:
+// MuJoCo's ``mj_step`` does with the Euler or the RK4 integrator, in float64:
 //
 //   kinematics -> subtree centres of mass, com-frame inertias, motion axes
 //   -> the joint-space inertia M (composite rigid bodies, armature on the
-//   diagonal) -> collision (sphere and capsule geoms against planes)
-//   -> velocities -> passive forces (joint springs and dampers) -> bias
-//   forces (recursive Newton-Euler: Coriolis, centrifugal, gravity)
-//   -> motor forces (gear * ctrl clamped to ctrlrange) -> constraint rows
-//   (joint limits, pyramidal contacts) with MuJoCo's soft-constraint
-//   impedance, stiffness and damping -> the constraint solve -> Euler with
-//   implicit joint damping.
+//   diagonal) -> collision (sphere and capsule geoms against planes,
+//   capsules against capsules) -> velocities -> passive forces (joint
+//   springs and dampers, the inertia-box fluid model) -> bias forces
+//   (recursive Newton-Euler: Coriolis, centrifugal, gravity) -> motor
+//   forces (gear * ctrl clamped to ctrlrange) -> constraint rows (joint
+//   limits, frictionless and pyramidal contacts) with MuJoCo's
+//   soft-constraint impedance, stiffness and damping -> the constraint
+//   solve -> Euler with implicit joint damping, or RK4 (four such forward
+//   passes a step, the dampers explicit).
 //
 // The model is MuJoCo's compiled one (``envs/assets/<name>.json``, packed by
 // ``envs/mujoco_native.py``), so MuJoCo's compiler (inertia from geoms,
@@ -47,7 +49,9 @@ constexpr double kMaxImp = 0.9999;  // mjMAXIMP
 
 enum JointType : int { kSlide = 2, kHinge = 3 };
 enum GeomType : int { kPlane = 0, kSphere = 2, kCapsule = 3 };
-enum RowType : int { kRowLimit = 3, kRowPyramidal = 6 };  // mjtConstraint
+enum RowType : int { kRowLimit = 3, kRowFrictionless = 5, kRowPyramidal = 6 };  // mjtConstraint
+enum Integrator : int { kEuler = 0, kRK4 = 1 };  // mjtIntegrator
+constexpr double kPi = 3.14159265358979323846;
 
 // ---------------------------------------------------------------------------
 // Small vector algebra, as MuJoCo's engine_util_* computes it.
@@ -237,8 +241,8 @@ struct Pair {  // a candidate contact pair with MuJoCo's mixed parameters
 };
 
 struct Model {
-  int nq, nv, nu, nbody, njnt, ngeom, npair;
-  double timestep, gravity[3], impratio;
+  int nq, nv, nu, nbody, njnt, ngeom, npair, integrator;
+  double timestep, gravity[3], impratio, wind[3], density, viscosity;
   std::vector<int> body_parentid, body_rootid, body_jntadr, body_jntnum;
   std::vector<int> jnt_type, jnt_qposadr, jnt_dofadr, jnt_limited;
   std::vector<int> dof_bodyid, dof_parentid, dof_jntid;
@@ -271,7 +275,10 @@ struct Reader {
   }
 };
 
-// MuJoCo's mixing of two geoms' contact parameters (mj_contactParam).
+// MuJoCo's mixing of two geoms' contact parameters (mj_contactParam). The
+// pair's margin and gap are the sums of the geoms' (mujoco 3.10): a contact
+// is found within margin + gap and becomes a constraint within the margin;
+// ``margin`` below holds the former, ``margin - gap`` the latter.
 Pair mix_pair(const Model& m, int g1, int g2) {
   Pair p{};
   p.g1 = g1;
@@ -296,8 +303,8 @@ Pair mix_pair(const Model& m, int g1, int g2) {
   p.friction[0] = p.friction[1] = fr[0];
   p.friction[2] = fr[1];
   p.friction[3] = p.friction[4] = fr[2];
-  p.margin = std::max(m.geom_margin[g1], m.geom_margin[g2]);
-  p.gap = std::max(m.geom_gap[g1], m.geom_gap[g2]);
+  p.gap = m.geom_gap[g1] + m.geom_gap[g2];
+  p.margin = m.geom_margin[g1] + m.geom_margin[g2] + p.gap;
   p.mu = p.friction[0] * std::sqrt(1.0 / m.impratio);
   return p;
 }
@@ -305,9 +312,9 @@ Pair mix_pair(const Model& m, int g1, int g2) {
 Model parse_model(const int* ints, const double* doubles) {
   Model m;
   Reader r{ints, doubles};
-  auto head = r.ints(7);
+  auto head = r.ints(8);
   m.nq = head[0], m.nv = head[1], m.nu = head[2], m.nbody = head[3], m.njnt = head[4], m.ngeom = head[5],
-  m.npair = head[6];
+  m.npair = head[6], m.integrator = head[7];
   int nb = m.nbody, nj = m.njnt, ng = m.ngeom, nv = m.nv, nu = m.nu;
   m.body_parentid = r.ints(nb);
   m.body_rootid = r.ints(nb);
@@ -324,10 +331,13 @@ Model parse_model(const int* ints, const double* doubles) {
   m.actuator_ctrllimited = r.ints(nu);
   auto pair_geoms = r.ints(2 * m.npair);
 
-  auto opt = r.doubles(5);
+  auto opt = r.doubles(10);
   m.timestep = opt[0];
   std::copy(opt.begin() + 1, opt.begin() + 4, m.gravity);
   m.impratio = opt[4];
+  std::copy(opt.begin() + 5, opt.begin() + 8, m.wind);
+  m.density = opt[8];
+  m.viscosity = opt[9];
   m.body_pos = r.doubles(3 * nb);
   m.body_quat = r.doubles(4 * nb);
   m.body_mass = r.doubles(nb);
@@ -380,9 +390,10 @@ Model parse_model(const int* ints, const double* doubles) {
   for (int p = 0; p < m.npair; ++p) {
     m.pairs.push_back(mix_pair(m, pair_geoms[2 * p], pair_geoms[2 * p + 1]));
     int g2 = pair_geoms[2 * p + 1];
-    int n = m.geom_type[g2] == kCapsule ? 2 : 1;
+    int n = m.geom_type[g2] == kCapsule ? 2 : 1;  // a capsule's two ends, or two near-parallel capsules
+    int condim = m.pairs.back().condim;
     m.max_contacts += n;
-    m.max_rows += n * 2 * (m.pairs.back().condim - 1);
+    m.max_rows += n * (condim == 1 ? 1 : 2 * (condim - 1));
   }
   for (int j = 0; j < nj; ++j) m.max_rows += m.jnt_limited[j] ? 2 : 0;
   for (int d = 0; d < nv; ++d) m.implicit_damping |= m.dof_damping[d] > 0;
@@ -406,7 +417,7 @@ struct Data {
   int nefc = 0;
   std::vector<int> efc_type;
   std::vector<double> efc_J, efc_pos, efc_margin, efc_diag, efc_R, efc_D, efc_aref, efc_vel, efc_force,
-      jar, jar_new, Jp, jac;
+      jar, jar_new, Jp, jac, jacr, qfrc_fluid, rk_q, rk_v, rk_f, rk_dx;
   std::vector<char> active, active_new;
   std::vector<std::pair<double, int>> breaks;
 
@@ -447,6 +458,12 @@ struct Data {
     active_new.assign(nr, 0);
     breaks.reserve(nr);
     jac.assign(3 * nv, 0);
+    jacr.assign(3 * nv, 0);
+    qfrc_fluid.assign(nv, 0);
+    rk_q.assign(4 * m.nq, 0);
+    rk_v.assign(4 * nv, 0);
+    rk_f.assign(4 * nv, 0);
+    rk_dx.assign(2 * nv, 0);
   }
 };
 
@@ -576,9 +593,11 @@ void crb(const Model& m, Data& d) {
   }
 }
 
-// The translational Jacobian of a point fixed to body b: [3, nv], row major.
-void jac_point(const Model& m, Data& d, int b, const double* point, double* jac) {
+// The translational Jacobian of a point fixed to body b: [3, nv], row major;
+// the rotational one too where ``jacr`` is given (mj_jac).
+void jac_point(const Model& m, Data& d, int b, const double* point, double* jac, double* jacr = nullptr) {
   std::fill(jac, jac + 3 * m.nv, 0.0);
+  if (jacr) std::fill(jacr, jacr + 3 * m.nv, 0.0);
   const double* com = &d.subtree_com[3 * m.body_rootid[b]];
   double off[3] = {point[0] - com[0], point[1] - com[1], point[2] - com[2]};
   int dof = -1;
@@ -591,6 +610,9 @@ void jac_point(const Model& m, Data& d, int b, const double* point, double* jac)
     double t[3];
     cross3(t, cd, off);
     for (int k = 0; k < 3; ++k) jac[k * m.nv + dof] = cd[3 + k] + t[k];
+    if (jacr) {
+      for (int k = 0; k < 3; ++k) jacr[k * m.nv + dof] = cd[k];
+    }
   }
 }
 
@@ -630,6 +652,92 @@ int plane_sphere(const Model& m, Data& d, int pair, const double* c, double r, c
   return 1;
 }
 
+// Two spheres (mjraw_SphereSphere): the normal from the first centre to the
+// second (the cross product of the geoms' axes if the centres coincide),
+// the position halfway into the overlap; returns 1 if a contact was added.
+int sphere_sphere(const Model& m, Data& d, int pair, const double* c1, double r1, const double* c2, double r2,
+                  const double* mat1, const double* mat2) {
+  double dif[3] = {c1[0] - c2[0], c1[1] - c2[1], c1[2] - c2[2]};
+  double dist = std::sqrt(dot3(dif, dif)) - r1 - r2;
+  if (dist > m.pairs[pair].margin) return 0;
+  Contact con{};
+  con.pair = pair;
+  con.dist = dist;
+  double* n = con.frame;
+  for (int k = 0; k < 3; ++k) n[k] = c2[k] - c1[k];
+  double len = std::sqrt(dot3(n, n));
+  if (len < kMinVal) {
+    double a1[3] = {mat1[2], mat1[5], mat1[8]}, a2[3] = {mat2[2], mat2[5], mat2[8]};
+    cross3(n, a1, a2);
+  }
+  normalize3(n);
+  double s = r1 + dist / 2;
+  for (int k = 0; k < 3; ++k) con.pos[k] = c1[k] + n[k] * s;
+  make_frame(con.frame);
+  d.contacts.push_back(con);
+  return 1;
+}
+
+// Two capsules (mjc_CapsuleCapsule): the closest points of the two
+// segments, clamped to their ends, as spheres; for (numerically) parallel
+// axes, the ends of one against their projections on the other, at most
+// two contacts.
+void capsule_capsule(const Model& m, Data& d, int pair) {
+  int g1 = m.pairs[pair].g1, g2 = m.pairs[pair].g2;
+  const double *pos1 = &d.geom_xpos[3 * g1], *mat1 = &d.geom_xmat[9 * g1];
+  const double *pos2 = &d.geom_xpos[3 * g2], *mat2 = &d.geom_xmat[9 * g2];
+  double r1 = m.geom_size[3 * g1], h1 = m.geom_size[3 * g1 + 1];
+  double r2 = m.geom_size[3 * g2], h2 = m.geom_size[3 * g2 + 1];
+  double axis1[3] = {mat1[2] * h1, mat1[5] * h1, mat1[8] * h1};
+  double axis2[3] = {mat2[2] * h2, mat2[5] * h2, mat2[8] * h2};
+  double dif[3] = {pos1[0] - pos2[0], pos1[1] - pos2[1], pos1[2] - pos2[2]};
+  double ma = dot3(axis1, axis1), mb = -dot3(axis1, axis2), mc = dot3(axis2, axis2);
+  double u = -dot3(axis1, dif), v = dot3(axis2, dif);
+  double det = ma * mc - mb * mb;
+  auto clip = [](double x) { return std::min(1.0, std::max(-1.0, x)); };
+  auto at = [](double* out, const double* pos, const double* axis, double x) {
+    for (int k = 0; k < 3; ++k) out[k] = pos[k] + axis[k] * x;
+  };
+  double v1[3], v2[3];
+  if (std::fabs(det) >= kMinVal) {
+    double x1 = (mc * u - mb * v) / det, x2 = (ma * v - mb * u) / det;
+    if (x1 > 1) {
+      x1 = 1;
+      x2 = (v - mb) / mc;
+    } else if (x1 < -1) {
+      x1 = -1;
+      x2 = (v + mb) / mc;
+    }
+    if (x2 > 1) {
+      x2 = 1;
+      x1 = clip((u - mb) / ma);
+    } else if (x2 < -1) {
+      x2 = -1;
+      x1 = clip((u + mb) / ma);
+    }
+    at(v1, pos1, axis1, x1);
+    at(v2, pos2, axis2, x2);
+    sphere_sphere(m, d, pair, v1, r1, v2, r2, mat1, mat2);
+    return;
+  }
+  // parallel: the ends of capsule 1, then those of capsule 2
+  int n = 0;
+  at(v1, pos1, axis1, 1);
+  at(v2, pos2, axis2, clip((v - mb) / mc));
+  n += sphere_sphere(m, d, pair, v1, r1, v2, r2, mat1, mat2);
+  at(v1, pos1, axis1, -1);
+  at(v2, pos2, axis2, clip((v + mb) / mc));
+  n += sphere_sphere(m, d, pair, v1, r1, v2, r2, mat1, mat2);
+  if (n >= 2) return;
+  at(v1, pos1, axis1, clip((u - mb) / ma));
+  at(v2, pos2, axis2, 1);
+  n += sphere_sphere(m, d, pair, v1, r1, v2, r2, mat1, mat2);
+  if (n >= 2) return;
+  at(v1, pos1, axis1, clip((u + mb) / ma));
+  at(v2, pos2, axis2, -1);
+  sphere_sphere(m, d, pair, v1, r1, v2, r2, mat1, mat2);
+}
+
 void collision(const Model& m, Data& d) {
   d.contacts.clear();
   for (int p = 0; p < m.npair; ++p) {
@@ -637,7 +745,9 @@ void collision(const Model& m, Data& d) {
     const double* pos = &d.geom_xpos[3 * g2];
     const double* mat = &d.geom_xmat[9 * g2];
     double r = m.geom_size[3 * g2];
-    if (m.geom_type[g2] == kSphere) {
+    if (m.geom_type[m.pairs[p].g1] == kCapsule) {
+      capsule_capsule(m, d, p);
+    } else if (m.geom_type[g2] == kSphere) {
       plane_sphere(m, d, p, pos, r, nullptr);
     } else {  // capsule: each end sphere, the frame's tangent along the axis
       double axis[3] = {mat[2], mat[5], mat[8]};
@@ -666,11 +776,79 @@ void com_vel(const Model& m, Data& d, const double* qvel) {
   }
 }
 
+// MuJoCo's inertia-box fluid model (mj_inertiaBoxFluidModel) for body i:
+// the box of the body's inertia, its 6-D velocity at ``xipos`` in the
+// inertial frame less the wind, viscous and quadratic drag on each axis,
+// rotated to the world and applied at ``xipos`` (mj_applyFT) into qfrc.
+void inertia_box_fluid(const Model& m, Data& d, int i, double* qfrc) {
+  const double* I = &m.body_inertia[3 * i];
+  double mass = m.body_mass[i], box[3];
+  box[0] = std::sqrt(std::max(kMinVal, I[1] + I[2] - I[0]) / mass * 6.0);
+  box[1] = std::sqrt(std::max(kMinVal, I[0] + I[2] - I[1]) / mass * 6.0);
+  box[2] = std::sqrt(std::max(kMinVal, I[0] + I[1] - I[2]) / mass * 6.0);
+  const double* R = &d.ximat[9 * i];
+  const double* cvel = &d.cvel[6 * i];
+  const double* com = &d.subtree_com[3 * m.body_rootid[i]];
+  const double* xipos = &d.xipos[3 * i];
+  // mj_objectVelocity(mjOBJ_BODY, local): the com-based velocity moved to xipos, in the inertial frame
+  double dif[3] = {xipos[0] - com[0], xipos[1] - com[1], xipos[2] - com[2]}, cros[3], lin[3], lvel[6];
+  cross3(cros, dif, cvel);
+  for (int k = 0; k < 3; ++k) lin[k] = cvel[3 + k] - cros[k];
+  auto mul_t = [R](double* r, const double* v) {
+    r[0] = R[0] * v[0] + R[3] * v[1] + R[6] * v[2];
+    r[1] = R[1] * v[0] + R[4] * v[1] + R[7] * v[2];
+    r[2] = R[2] * v[0] + R[5] * v[1] + R[8] * v[2];
+  };
+  mul_t(lvel, cvel);
+  mul_t(lvel + 3, lin);
+  double lwind[3];
+  mul_t(lwind, m.wind);
+  for (int k = 0; k < 3; ++k) lvel[3 + k] -= lwind[k];
+  double lfrc[6] = {0, 0, 0, 0, 0, 0};
+  if (m.viscosity > 0) {
+    double diam = (box[0] + box[1] + box[2]) / 3.0;
+    for (int k = 0; k < 3; ++k) lfrc[k] = lvel[k] * (-kPi * diam * diam * diam * m.viscosity);
+    for (int k = 0; k < 3; ++k) lfrc[3 + k] = lvel[3 + k] * (-3.0 * kPi * diam * m.viscosity);
+  }
+  if (m.density > 0) {
+    double rho = m.density;
+    lfrc[3] -= 0.5 * rho * box[1] * box[2] * std::fabs(lvel[3]) * lvel[3];
+    lfrc[4] -= 0.5 * rho * box[0] * box[2] * std::fabs(lvel[4]) * lvel[4];
+    lfrc[5] -= 0.5 * rho * box[0] * box[1] * std::fabs(lvel[5]) * lvel[5];
+    auto p4 = [](double x) { return x * x * x * x; };
+    lfrc[0] -= rho * box[0] * (p4(box[1]) + p4(box[2])) * std::fabs(lvel[0]) * lvel[0] / 64.0;
+    lfrc[1] -= rho * box[1] * (p4(box[0]) + p4(box[2])) * std::fabs(lvel[1]) * lvel[1] / 64.0;
+    lfrc[2] -= rho * box[2] * (p4(box[0]) + p4(box[1])) * std::fabs(lvel[2]) * lvel[2] / 64.0;
+  }
+  double torque[3], force[3];
+  mulmat_vec3(torque, R, lfrc);
+  mulmat_vec3(force, R, lfrc + 3);
+  int nv = m.nv;
+  jac_point(m, d, i, xipos, d.jac.data(), d.jacr.data());
+  for (int k = 0; k < nv; ++k) {
+    double f = 0, t = 0;
+    for (int a = 0; a < 3; ++a) {
+      f += d.jac[a * nv + k] * force[a];
+      t += d.jacr[a * nv + k] * torque[a];
+    }
+    qfrc[k] += f;
+    qfrc[k] += t;
+  }
+}
+
 void passive(const Model& m, Data& d, const double* qpos, const double* qvel) {
   for (int j = 0; j < m.njnt; ++j) {
     int dof = m.jnt_dofadr[j], q = m.jnt_qposadr[j];
     double spring = m.jnt_stiffness[j] == 0 ? 0.0 : -m.jnt_stiffness[j] * (qpos[q] - m.qpos_spring[q]);
     d.qfrc_passive[dof] = spring + -m.dof_damping[dof] * qvel[dof];
+  }
+  if (m.viscosity > 0 || m.density > 0) {
+    double* fluid = d.qfrc_fluid.data();
+    std::fill(fluid, fluid + m.nv, 0.0);
+    for (int i = 1; i < m.nbody; ++i) {
+      if (m.body_mass[i] >= kMinVal) inertia_box_fluid(m, d, i, fluid);
+    }
+    for (int k = 0; k < m.nv; ++k) d.qfrc_passive[k] += fluid[k];
   }
 }
 
@@ -798,6 +976,18 @@ void make_constraints(const Model& m, Data& d, const double* qpos, const double*
       }
     }
     double tran = m.body_invweight0[2 * b1] + m.body_invweight0[2 * b2];
+    if (p.condim == 1) {  // frictionless: the normal row alone, diagApprox the translational weight
+      double* J = &d.efc_J[r * nv];
+      for (int q = 0; q < nv; ++q) J[q] = Jf[0][q];
+      d.efc_type[r] = kRowFrictionless;
+      d.efc_pos[r] = c.dist;
+      d.efc_margin[r] = p.margin - p.gap;
+      d.efc_diag[r] = tran;
+      row_vel(r);
+      finish_row(m, d, r, p.solref, p.solimp);
+      ++r;
+      continue;
+    }
     // the pyramid's edges J_n +- f_k J_t_k; regulariser 2 mu^2 (1 + f_k^2) tran
     for (int k = 1; k < p.condim; ++k) {
       double f = p.friction[k - 1];
@@ -948,9 +1138,60 @@ void forward(const Model& m, Data& d, const double* qpos, const double* qvel, co
   }
 }
 
+// mj_integratePos for hinges and slides: qpos += h v.
+void integrate_pos(const Model& m, double* qpos, const double* v, double h) {
+  for (int j = 0; j < m.njnt; ++j) qpos[m.jnt_qposadr[j]] += h * v[m.jnt_dofadr[j]];
+}
+
+// mj_step with RK4 (mj_RungeKutta(m, d, 4) after mj_forward): stage i
+// starts from the step's state advanced by the A-weighted velocities and
+// accelerations of the stages before it and runs a full forward pass; the
+// step is the B-weighted sum (mj_advance). No implicit damping.
+void step_rk4(const Model& m, Data& d, double* qpos, double* qvel, const double* ctrl) {
+  static const double A[9] = {0.5, 0, 0, 0, 0.5, 0, 0, 0, 1};
+  static const double B[4] = {1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0};
+  int nq = m.nq, nv = m.nv;
+  double h = m.timestep;
+  double *X = d.rk_q.data(), *V = d.rk_v.data(), *F = d.rk_f.data(), *dv = d.rk_dx.data(), *da = dv + nv;
+  std::memcpy(X, qpos, nq * sizeof(double));
+  std::memcpy(V, qvel, nv * sizeof(double));
+  forward(m, d, qpos, qvel, ctrl);
+  std::memcpy(F, d.qacc.data(), nv * sizeof(double));
+  for (int i = 1; i < 4; ++i) {
+    std::fill(dv, dv + 2 * nv, 0.0);
+    for (int j = 0; j < i; ++j) {
+      double a = A[(i - 1) * 3 + j];
+      for (int k = 0; k < nv; ++k) {
+        dv[k] += V[j * nv + k] * a;
+        da[k] += F[j * nv + k] * a;
+      }
+    }
+    double *Xi = X + i * nq, *Vi = V + i * nv;
+    std::memcpy(Xi, X, nq * sizeof(double));
+    integrate_pos(m, Xi, dv, h);
+    for (int k = 0; k < nv; ++k) Vi[k] = V[k] + da[k] * h;
+    forward(m, d, Xi, Vi, ctrl);
+    std::memcpy(F + i * nv, d.qacc.data(), nv * sizeof(double));
+  }
+  std::fill(dv, dv + 2 * nv, 0.0);
+  for (int j = 0; j < 4; ++j) {
+    for (int k = 0; k < nv; ++k) {
+      dv[k] += V[j * nv + k] * B[j];
+      da[k] += F[j * nv + k] * B[j];
+    }
+  }
+  for (int k = 0; k < nv; ++k) qvel[k] = V[k] + da[k] * h;
+  std::memcpy(qpos, X, nq * sizeof(double));
+  integrate_pos(m, qpos, dv, h);
+}
+
 // mj_step with the Euler integrator: forward, then qvel += h qacc and
 // qpos += h qvel, the damping integrated implicitly (M + h diag(b)).
 void step(const Model& m, Data& d, double* qpos, double* qvel, const double* ctrl) {
+  if (m.integrator == kRK4) {
+    step_rk4(m, d, qpos, qvel, ctrl);
+    return;
+  }
   int nv = m.nv;
   double h = m.timestep;
   forward(m, d, qpos, qvel, ctrl);
@@ -965,7 +1206,7 @@ void step(const Model& m, Data& d, double* qpos, double* qvel, const double* ctr
     std::memcpy(acc, d.qacc.data(), nv * sizeof(double));
   }
   for (int i = 0; i < nv; ++i) qvel[i] += h * acc[i];
-  for (int j = 0; j < m.njnt; ++j) qpos[m.jnt_qposadr[j]] += h * qvel[m.jnt_dofadr[j]];
+  integrate_pos(m, qpos, qvel, h);
 }
 
 void parallel_for(int n, int n_threads, const std::function<void(int, int, int)>& fn) {
@@ -994,17 +1235,19 @@ struct Engine {
 extern "C" {
 
 // Returns nullptr for a model the engine does not cover (nv above 64, a
-// joint other than hinge or slide, a contact pair other than a sphere or
-// capsule on a plane with condim 3).
+// joint other than hinge or slide, an integrator other than Euler or RK4,
+// a contact pair other than a sphere or capsule on a plane or two
+// capsules, with condim 1 or 3).
 void* mjt_create(const int* ints, const double* doubles, int n_threads) {
   auto* e = new Engine();
   e->model = parse_model(ints, doubles);
   const Model& m = e->model;
-  bool ok = m.nv <= 64;
+  bool ok = m.nv <= 64 && (m.integrator == kEuler || m.integrator == kRK4);
   for (int t : m.jnt_type) ok &= t == kSlide || t == kHinge;
   for (const Pair& p : m.pairs) {
-    ok &= m.geom_type[p.g1] == kPlane && (m.geom_type[p.g2] == kSphere || m.geom_type[p.g2] == kCapsule);
-    ok &= p.condim == 3;  // sliding friction only: the frame's two tangents
+    int t1 = m.geom_type[p.g1], t2 = m.geom_type[p.g2];
+    ok &= (t1 == kPlane && (t2 == kSphere || t2 == kCapsule)) || (t1 == kCapsule && t2 == kCapsule);
+    ok &= p.condim == 1 || p.condim == 3;  // frictionless, or sliding friction: the frame's two tangents
   }
   if (!ok) {
     delete e;

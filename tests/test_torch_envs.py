@@ -126,7 +126,7 @@ def test_registry_and_default_device():
     assert venv.is_host and venv.device == torch.device("cpu")
     venv.close()
     with pytest.raises(NotImplementedError):
-        make_vec_env("seals/Hopper-v1", device="cpu")  # not ported yet
+        make_vec_env("seals/Ant-v1", device="cpu")  # not ported yet
     with pytest.raises(KeyError):
         make_vec_env("NoSuchEnv-v0", device="cpu")
     if torch.cuda.is_available():
